@@ -10,16 +10,25 @@ Phases (any failure raises and the exit code is not 0):
 2. build: compiles the CUDA kernels from ``pgpfa_torch/csrc`` with nvcc.
 3. kernels: each kernel against its plain PyTorch version on the card at the
    shapes of the main path (f32 SPD inputs from a seed), the non-PD case, and
-   the median time of kernel and plain version by CUDA events.
-4. slice: 3 f64 batch Laplace EM iterations of the Stevenson-shaped
+   the median time by CUDA events of the kernel, its plain version and the
+   one library call that computes the same function (``library_ms``:
+   ``torch.linalg.cholesky_ex``; two cuBLAS SGEMMs for ``ns_step``), beside
+   the bound computed from the shape (``bound_ms``).
+4. hessian: the backward error ``||L L^T - A||_F / ||A||_F`` of ``chol32``
+   on the slice's first Newton Hessians (100, 700, 700), at most twice
+   cuSOLVER's on the same matrices, matrix by matrix.
+5. slice: 3 f64 batch Laplace EM iterations of the Stevenson-shaped
    surrogate (100 trials x 90 neurons x 140 bins, xdim 5, Poisson-PCA init
    with seed 0) through ``pgpfa_torch.fit`` on the card, after a one-
    iteration warm-up fit; checks both kernels were launched during the fit
    and holds the trajectory against the exact NumPy/SciPy oracle
-   (``ORACLE_TRAJ_STEVENSON.json``).
+   (``ORACLE_TRAJ_STEVENSON.json``). Then one more E-step at the fitted
+   parameters, timed by phase, and the backward-error check of phase 4 on
+   the Hessians at its modes, where every trial's matrix differs.
 
-The last two lines of standard output are one JSON object with the kernels'
-numbers and ``{"ok": true, "device": {...}}``.
+The last three lines of standard output are one JSON object with the
+kernels' numbers, the ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -51,6 +60,12 @@ TAU_TOL = 1e-5
 # [0.5, 4.5] (chol32) or [1, 5] (ns_step): f32 rounding of two summation
 # orders, the 2e-5 of tests/test_pallas.py.
 KERNEL_TOL = 2e-5
+# The kernel's backward error on the Laplace Hessian may be at most this many
+# times cuSOLVER's, matrix by matrix.
+BACKWARD_RATIO = 2.0
+# H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM3.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def log(msg):
@@ -77,6 +92,23 @@ def median_ms(fn, reps=REPS):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def bound_ms(flops, nbytes):
+    """Least time for the work: the larger of flops over the FP32 peak and
+    bytes over the memory rate; and which of the two it is."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def chol32_bound(B, D):
+    """D^3/3 flops per matrix; the lower triangle read once, L written once."""
+    return bound_ms(B * D**3 / 3, 4 * B * (D * (D + 1) // 2 + D * D))
+
+
+def ns_step_bound(B, D):
+    """Two D x D x D products per matrix; H and X read once, X' written once."""
+    return bound_ms(4 * B * D**3, 4 * 3 * B * D * D)
 
 
 def phase_device():
@@ -112,6 +144,17 @@ def phase_kernels():
     from pgpfa_torch.ops.cuda_kernels import chol32, chol32_plain, ns_step, ns_step_plain
 
     rows = {}
+
+    def timed(name, B, D, err, kernel, plain, library, bound):
+        ms, plain_ms, library_ms = median_ms(kernel), median_ms(plain), median_ms(library)
+        b_ms, b_by = bound
+        log(f"{name} ({B}, {D}, {D}): max|kernel - plain| = {err:.3e}; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {b_ms:.5f} ms "
+            f"({b_by}; kernel at {100 * b_ms / ms:.1f}% of it)")
+        rows[(name, B, D)] = {"shape": f"({B}, {D}, {D})", "max_abs_err": err, "ms": ms,
+                              "plain_ms": plain_ms, "library_ms": library_ms,
+                              "bound_ms": b_ms, "bound_by": b_by}
+
     # chol32: the Laplace Hessian (100, 700, 700), the prior and tau-derivative
     # blocks (5, 140, 140), the tau M-step's two candidates per latent
     # (10, 140, 140), the per-neuron M-step systems (90, 6, 6), and a D that
@@ -122,12 +165,11 @@ def phase_kernels():
         torch.cuda.synchronize()
         err = float((L - Lp).abs().max())
         ok = bool(torch.allclose(L, Lp, rtol=KERNEL_TOL, atol=KERNEL_TOL)) and torch.equal(L, L.tril())
-        ms, plain_ms = median_ms(lambda: chol32(A)), median_ms(lambda: chol32_plain(A))
-        log(f"chol32 ({B}, {D}, {D}): max|kernel - plain| = {err:.3e} "
-            f"(allclose rtol=atol={KERNEL_TOL}) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        log(f"chol32 ({B}, {D}, {D}): allclose to plain at rtol=atol={KERNEL_TOL}: {ok}")
         if not ok:
-            raise RuntimeError(f"chol32 disagrees with its plain version at ({B}, {D}, {D})")
-        rows[("chol32", B, D)] = (err, ms, plain_ms)
+            raise RuntimeError(f"chol32 disagrees with its plain version at ({B}, {D}, {D}): {err:.3e}")
+        timed("chol32", B, D, err, lambda: chol32(A), lambda: chol32_plain(A),
+              lambda: torch.linalg.cholesky_ex(A), chol32_bound(B, D))
 
     bad = torch.tensor([[1.0, 2.0, 0.0], [2.0, 1.0, 0.0], [0.0, 0.0, 1.0]], device="cuda")
     Lbad = chol32(torch.stack([bad, 4.0 * torch.eye(3, device="cuda")]))
@@ -146,14 +188,65 @@ def phase_kernels():
         torch.cuda.synchronize()
         err = float((out - want).abs().max())
         scale = float(want.abs().max())
-        ms, plain_ms = median_ms(lambda: ns_step(H, X)), median_ms(lambda: ns_step_plain(H, X))
         log(f"ns_step ({B}, {D}, {D}): max|kernel - plain| = {err:.3e} "
-            f"(<= {KERNEL_TOL} x max|X'| = {KERNEL_TOL * scale:.3e}) "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            f"(<= {KERNEL_TOL} x max|X'| = {KERNEL_TOL * scale:.3e})")
         if not err <= KERNEL_TOL * scale:
             raise RuntimeError(f"ns_step disagrees with its plain version at ({B}, {D}, {D})")
-        rows[("ns_step", B, D)] = (err, ms, plain_ms)
+        # 2 X - X (H X) as two cuBLAS SGEMMs (TF32 off)
+        timed("ns_step", B, D, err, lambda: ns_step(H, X), lambda: ns_step_plain(H, X),
+              lambda: torch.baddbmm(X, X, torch.bmm(H, X), beta=2.0, alpha=-1.0),
+              ns_step_bound(B, D))
     return rows
+
+
+def phase_hessian():
+    """chol32's backward error on the slice's own matrices: the first Newton
+    Hessian of every trial (cold E-step, modes 0) at the Stevenson init."""
+    from pgpfa_torch import initialize_params, params_from_numpy, stevenson_surrogate
+
+    ds = stevenson_surrogate(xdim=5, seed=2011)
+    p = params_from_numpy(initialize_params(5, ds.ydim, ds, seed=0))
+    X0 = torch.zeros(ds.numTrials, 5, ds.T, dtype=torch.float64, device="cuda")
+    check_backward_error("first Newton Hessians", p, X0, ds)
+
+
+def check_backward_error(label, p, X, ds):
+    """The kernel's ``||L L^T - A||_F / ||A||_F`` on the Laplace Hessians at
+    modes ``X`` (R, xdim, T) and parameters ``p``, at most BACKWARD_RATIO
+    times cuSOLVER's on the same matrix, matrix by matrix."""
+    from pgpfa_torch.models.params import rbf_kernel
+    from pgpfa_torch.models.poisson_gpfa import hessian_weights, linear_predictor
+    from pgpfa_torch.ops.blockmat import assemble_hessian, blocks_inv
+    from pgpfa_torch.ops.cuda_kernels import chol32
+
+    W = hessian_weights(p.C, torch.exp(linear_predictor(p.C, p.d, X)))
+    Kinv = blocks_inv(rbf_kernel(p.tau, ds.T, float(ds.binSize)))
+    H32 = assemble_hessian(W.to(torch.float32), Kinv.to(torch.float32)).contiguous()
+    H64 = H32.double()
+    ev = torch.linalg.eigvalsh(H64[0])
+    cond = float(ev[-1] / ev[0])
+    spread = float((H64 - H64[:1]).abs().amax() / H64.abs().amax())
+
+    def backward_error(L):
+        L64 = L.double()
+        return (torch.linalg.matrix_norm(L64 @ L64.transpose(1, 2) - H64)
+                / torch.linalg.matrix_norm(H64))
+
+    Lk = chol32(H32)
+    Lc, info = torch.linalg.cholesky_ex(H32)
+    if int(info.abs().max()) != 0 or not bool(torch.isfinite(Lk).all()):
+        raise RuntimeError("the first Newton Hessians must factor")
+    ek, ec = backward_error(Lk), backward_error(Lc)
+    ratio = ek / ec
+    log(f"hessian, {label} {tuple(H32.shape)}: condition of trial 0 {cond:.3g}; "
+        f"max|H_r - H_0| / max|H| = {spread:.3g}; "
+        f"||L L^T - A||_F / ||A||_F kernel max {float(ek.max()):.3e} median "
+        f"{float(ek.median()):.3e}, cuSOLVER max {float(ec.max()):.3e} median "
+        f"{float(ec.median()):.3e}; kernel / cuSOLVER max {float(ratio.max()):.3f} "
+        f"median {float(ratio.median()):.3f} (limit {BACKWARD_RATIO})")
+    if not float(ratio.max()) <= BACKWARD_RATIO:
+        raise RuntimeError(f"chol32's backward error on the {label} exceeds "
+                           f"{BACKWARD_RATIO}x cuSOLVER's")
 
 
 def phase_slice():
@@ -227,6 +320,7 @@ def phase_slice():
     log(f"phase split (cold E-step from zero modes): E-step {t1 - t0:.3f} s "
         f"({int(inf.newton_iters.max())} Newton bodies), (C, d) M-step {t2 - t1:.3f} s, "
         f"tau M-step {t3 - t2:.3f} s")
+    check_backward_error("Hessians at the fitted modes", p, inf.post_mean, ds)
     return launches
 
 
@@ -234,6 +328,7 @@ def main():
     smi = phase_device()
     phase_build()
     rows = phase_kernels()
+    phase_hessian()
     launches = phase_slice()
 
     kernels = []
@@ -241,10 +336,9 @@ def main():
         ("chol32", "pgpfa_torch/csrc/chol32.cu", "scripts/exp_pallas_chol.py:41", (100, 700)),
         ("ns_step", "pgpfa_torch/csrc/ns_step.cu", "pgpfa/ops/pallas_kernels.py:42", (5, 140)),
     ]:
-        err, ms, plain_ms = rows[(name, B, D)]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "shape": f"({B}, {D}, {D})", "launches": launches[name], "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms})
+                        "launches": launches[name], **rows[(name, B, D)],
+                        "shapes": [r for (n, _, _), r in rows.items() if n == name]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,10 @@ Laplace EM, with the f32 factorization and the f32 Newton-Schulz step of its
 mixed-precision solvers as hand-written CUDA kernels
 (``pgpfa_torch/csrc/``). Every function works on tensors of one device:
 on a CUDA device the kernels run, on the CPU their plain PyTorch versions.
-The default dtype is float64. Nothing here imports JAX.
+The entry points that take arrays (``fit``, ``params_from_numpy``,
+``convert.to_tensor``) put them on the card unless the caller passes
+``device="cpu"``; nothing falls back to the CPU when there is no card. The
+default dtype is float64. Nothing here imports JAX.
 
 Model::
 

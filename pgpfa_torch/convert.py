@@ -9,8 +9,9 @@ import torch
 from pgpfa_torch.models.params import Params
 
 
-def to_tensor(a, device="cpu", dtype=torch.float64) -> torch.Tensor:
-    """An array (e.g. warm-start modes ``x_init``) as a tensor."""
+def to_tensor(a, device="cuda", dtype=torch.float64) -> torch.Tensor:
+    """An array (e.g. warm-start modes ``x_init``) as a tensor on ``device``
+    (the card unless the caller asks for the CPU)."""
     return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
 
@@ -19,8 +20,9 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def params_from_numpy(p, device="cpu", dtype=torch.float64) -> Params:
-    """``{'C', 'd', 'tau'}`` arrays -> :class:`Params` on ``device``."""
+def params_from_numpy(p, device="cuda", dtype=torch.float64) -> Params:
+    """``{'C', 'd', 'tau'}`` arrays -> :class:`Params` on ``device`` (the
+    card unless the caller asks for the CPU)."""
     return Params(
         C=to_tensor(p["C"], device, dtype),
         d=to_tensor(p["d"], device, dtype).reshape(-1),

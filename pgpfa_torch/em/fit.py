@@ -94,7 +94,7 @@ def fit(
     Y,
     bin_size_ms: float,
     config: Optional[FitConfig] = None,
-    device="cpu",
+    device="cuda",
     dtype=torch.float64,
 ) -> FitResult:
     """Run a batch Laplace EM fit.
@@ -106,14 +106,15 @@ def fit(
         bin_size_ms: bin width in milliseconds.
         config: :class:`FitConfig` (defaults to batch Laplace EM).
         device, dtype: where and in what precision the fit runs (f64 only
-            for now). A CUDA device runs the CUDA kernels; there is no
-            fallback to the CPU.
+            for now). The default is the card, which runs the CUDA kernels;
+            there is no fallback to the CPU. Pass ``device="cpu"`` to run
+            the kernels' plain PyTorch versions on the CPU.
     """
     cfg = config or FitConfig()
-    p = init_params if isinstance(init_params, Params) else params_from_numpy(
-        init_params, device, dtype)
-    if p.C.dtype != torch.float64:
+    is_params = isinstance(init_params, Params)
+    if (init_params.C.dtype if is_params else dtype) != torch.float64:
         raise NotImplementedError("the f32 fast mode is not ported yet")
+    p = init_params if is_params else params_from_numpy(init_params, device, dtype)
     Y = torch.as_tensor(Y, dtype=p.C.dtype, device=p.C.device)
     T = Y.shape[-1]
     bin_size_ms = float(bin_size_ms)

@@ -20,11 +20,31 @@ from __future__ import annotations
 import torch
 
 # Largest D whose shared-memory footprint fits one H100 block (227 KB):
-# ns_step keeps two D x 32 f32 tiles plus a 64 x 33 staging tile,
-# chol32 one D x 33 f32 panel.
+# ns_step keeps two D x 32 f32 tiles plus a 64 x 33 staging tile; chol32 one
+# nbw-column f32 panel over nbw + 32 * ceil((D - nbw) / 32) rows, 4 rows of
+# padding per column, and 64 reciprocal pivots, with nbw = 64 where that
+# fits (D <= 896) and 32 above (chol32_smem_bytes).
 _SMEM_LIMIT = 232448
 NS_STEP_MAX_D = (_SMEM_LIMIT // 4 - 64 * 33) // 64
-CHOL32_MAX_D = _SMEM_LIMIT // (4 * 33)
+
+
+def _chol32_panel_bytes(D: int, nbw: int) -> int:
+    rows = nbw + 32 * -(-max(D - nbw, 0) // 32)
+    return 4 * (nbw * (rows + 4) + 64)
+
+
+def chol32_panel_width(D: int) -> int:
+    """Panel width of the chol32 kernel at width ``D``: 64 where the panel
+    fits one block's shared memory, else 32."""
+    return 64 if _chol32_panel_bytes(D, 64) <= _SMEM_LIMIT else 32
+
+
+def chol32_smem_bytes(D: int) -> int:
+    """Dynamic shared memory of the chol32 kernel at width ``D``."""
+    return _chol32_panel_bytes(D, chol32_panel_width(D))
+
+
+CHOL32_MAX_D = max(D for D in range(1, 4096) if chol32_smem_bytes(D) <= _SMEM_LIMIT)
 _MAX_GRID_Y = 65535
 
 

@@ -1,6 +1,7 @@
 """The port's NumPy data path against ``pgpfa``'s ``backend="numpy"`` path,
 the parameter conversions, and import hygiene."""
 
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -74,7 +75,26 @@ def test_params_round_trip():
     np.testing.assert_array_equal(back["C"], p["C"])
     np.testing.assert_array_equal(back["tau"], p["tau"].ravel())
     x = np.random.default_rng(0).normal(size=(2, 2, 5))
-    np.testing.assert_array_equal(to_numpy(to_tensor(x)), x)
+    np.testing.assert_array_equal(to_numpy(to_tensor(x, "cpu")), x)
+
+
+@pytest.mark.parametrize("fn", [pgpfa_torch.fit, params_from_numpy, to_tensor])
+def test_entry_points_default_to_the_card(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_no_device_means_the_card():
+    """Without a device argument the arrays go to the card; on a machine
+    without one that raises instead of running on the CPU."""
+    p = {"C": np.ones((3, 2)), "d": np.zeros(3), "tau": np.array([0.1, 0.2])}
+    if torch.cuda.is_available():
+        assert to_tensor(p["C"]).device.type == "cuda"
+        assert params_from_numpy(p).C.device.type == "cuda"
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
+        to_tensor(p["C"])
+    with pytest.raises((RuntimeError, AssertionError)):
+        params_from_numpy(p)
 
 
 def test_port_imports_no_jax():

@@ -71,6 +71,7 @@ def test_fit_takes_params_on_their_device(fits):
     ds, init, _, t = fits
     p = params_from_numpy(init, "cpu", torch.float64)
     one = fit(p, torch.as_tensor(ds.Y), BIN, FitConfig(max_em_iter=1))
+    assert one.post_loglik.device.type == "cpu" and one.C.device.type == "cpu"
     assert torch.equal(one.post_loglik[0], t.post_loglik[0])
     assert torch.equal(one.tau_seq[0], t.tau_seq[0])
 
@@ -92,6 +93,8 @@ def test_fitconfig_rejects_unknown_values(kw):
 def test_fit_rejects_f32(fits):
     ds, init, _, _ = fits
     with pytest.raises(NotImplementedError):
+        fit(init, ds.Y, BIN, FitConfig(max_em_iter=1), device="cpu", dtype=torch.float32)
+    with pytest.raises(NotImplementedError):  # before any tensor is made on the default card
         fit(init, ds.Y, BIN, FitConfig(max_em_iter=1), dtype=torch.float32)
 
 

@@ -203,17 +203,36 @@ def test_shared_memory_limits():
     """Largest D whose tiles fit one block's 227 KB of shared memory."""
     assert 4 * (2 * cuda_kernels.NS_STEP_MAX_D * 32 + 64 * 33) <= 232448
     assert 4 * (2 * (cuda_kernels.NS_STEP_MAX_D + 1) * 32 + 64 * 33) > 232448
-    assert 4 * cuda_kernels.CHOL32_MAX_D * 33 <= 232448 < 4 * (cuda_kernels.CHOL32_MAX_D + 1) * 33
+    smem, D = cuda_kernels.chol32_smem_bytes, cuda_kernels.CHOL32_MAX_D
+    assert smem(D) <= 232448 < smem(D + 1)
+    assert smem(700) == 4 * (64 * 708 + 64)  # the Laplace Hessian's width, 64-wide panels
+    width = cuda_kernels.chol32_panel_width
+    assert (width(896), width(897), width(D)) == (64, 32, 32)
+    assert smem(D) == 4 * (32 * (D + 4) + 64)
+
+
+@pytest.mark.parametrize("xdim,T", [(5, 140), (6, 140), (7, 140), (8, 140), (5, 352), (1, 1760)])
+def test_chol32_takes_the_laplace_hessian_widths(xdim, T):
+    """The Laplace Hessian is xdim * T wide: every latent count the port
+    supports at the Stevenson T = 140 (xdim <= 8), and every width up to 1760
+    that the first 32-wide kernel took, fit the kernel's shared memory."""
+    assert xdim * T <= cuda_kernels.CHOL32_MAX_D
+    assert cuda_kernels.chol32_smem_bytes(xdim * T) <= 232448
 
 
 # -- on the card ----------------------------------------------------------------
 
 
 @requires_cuda
-@pytest.mark.parametrize("B,D", [(100, 700), (5, 140), (90, 6), (4, 260), (3, 1)])
+@pytest.mark.parametrize("B,D", [(100, 700), (5, 140), (90, 6), (4, 260), (3, 1),
+                                 (3, 63), (3, 64), (3, 65), (3, 127), (3, 128), (3, 129),
+                                 (3, 896), (3, 897), (2, 1120), (2, 1792)])
 def test_cuda_chol32_matches_plain(B, D):
     """Kernel vs cuSOLVER-backed plain version on well-conditioned SPD
-    matrices (eigenvalues in [0.5, 4.5]): 2e-5, f32 rounding of two orders."""
+    matrices (eigenvalues in [0.5, 4.5]): 2e-5, f32 rounding of two orders.
+    The widths reach both edges of the 64-wide panel, its 32-wide sub-panels
+    and the 32 x 32 warp tiles, both load paths (D % 4 == 0 or not), and the
+    32-wide panels of D > 896 up to the largest D."""
     A = torch.from_numpy(spd_batch(np.random.default_rng(D), B, D, dtype=np.float32)).cuda()
     n = chol32.launches
     L = chol32(A)
@@ -224,12 +243,56 @@ def test_cuda_chol32_matches_plain(B, D):
 
 
 @requires_cuda
+@pytest.mark.parametrize("B,D", [(100, 700), (4, 260)])
+def test_cuda_chol32_offset_input(B, D):
+    """A contiguous view one float into its buffer (rows not 16-byte
+    aligned) gives the same factor as the aligned input."""
+    A = torch.from_numpy(spd_batch(np.random.default_rng(D + 1), B, D, dtype=np.float32)).cuda()
+    buf = torch.empty(A.numel() + 1, device="cuda")
+    Aoff = buf[1:].view_as(A)
+    Aoff.copy_(A)
+    assert Aoff.data_ptr() % 16 != 0
+    torch.testing.assert_close(chol32(Aoff), chol32(A), rtol=0, atol=0)
+
+
+@requires_cuda
 def test_cuda_chol32_nan_on_non_pd():
     bad = torch.tensor([[1.0, 2.0, 0.0], [2.0, 1.0, 0.0], [0.0, 0.0, 1.0]])
     A = torch.stack([bad, 4.0 * torch.eye(3)]).cuda()
     L = chol32(A).cpu()
     assert torch.isnan(L[0].tril()[torch.tril(torch.ones(3, 3, dtype=torch.bool))]).all()
     assert torch.equal(L[1], 2.0 * torch.eye(3))
+
+
+@requires_cuda
+def test_cuda_chol32_late_pivot_failure():
+    """One matrix of a (100, 700, 700) batch fails at column 650 (its
+    diagonal entry there made negative, so the first 650 pivots are as
+    before): its whole lower triangle is NaN, its neighbours match the
+    plain version."""
+    A = torch.from_numpy(spd_batch(np.random.default_rng(7), 100, 700, dtype=np.float32)).cuda()
+    A[37, 650, 650] = -1.0
+    L, want = chol32(A), chol32_plain(A)
+    torch.cuda.synchronize()
+    lower = torch.ones(700, 700, dtype=torch.bool, device="cuda").tril()
+    assert torch.isnan(L[37][lower]).all() and (L[37][~lower] == 0).all()
+    ok = torch.ones(100, dtype=torch.bool)
+    ok[37] = False
+    torch.testing.assert_close(L[ok], want[ok], rtol=2e-5, atol=2e-5)
+
+
+@requires_cuda
+def test_cuda_chol32_reads_lower_only_at_700():
+    """At D = 700 the input is left as it was, and garbage (NaN) above the
+    diagonal changes nothing in the factor."""
+    A = torch.from_numpy(spd_batch(np.random.default_rng(8), 4, 700, dtype=np.float32)).cuda()
+    before = A.clone()
+    L = chol32(A)
+    torch.cuda.synchronize()
+    assert torch.equal(A, before)
+    garbage = A.tril() + torch.triu(torch.full_like(A, float("nan")), 1)
+    assert torch.equal(chol32(garbage), L)
+    assert torch.equal(L, L.tril())
 
 
 @requires_cuda
