@@ -13,7 +13,10 @@ Phases (any failure raises and the exit code is not 0):
    the median time by CUDA events of the kernel, its plain version and the
    one library call that computes the same function (``library_ms``:
    ``torch.linalg.cholesky_ex``; two cuBLAS SGEMMs for ``ns_step``), beside
-   the bound computed from the shape (``bound_ms``).
+   the bound computed from the shape (``bound_ms``); ``ns_step`` also timed
+   on inputs one float off 16-byte alignment (``offset_ms``, its 4-byte
+   copy path), and checked at the widest width ``chol32`` factors,
+   (2, 1792, 1792), correctness only.
 4. hessian: the backward error ``||L L^T - A||_F / ||A||_F`` of ``chol32``
    on the slice's first Newton Hessians (100, 700, 700), at most twice
    cuSOLVER's on the same matrices, matrix by matrix.
@@ -178,9 +181,14 @@ def phase_kernels():
         raise RuntimeError(f"chol32 non-PD semantics broken: {Lbad.cpu()}")
     log("chol32 non-PD matrix: NaN lower triangle, PD neighbour exact")
 
-    # ns_step: the prior inverse / tau-derivative blocks (5, 140, 140), and
-    # the Laplace-Hessian width (100, 700, 700).
-    for B, D in [(5, 140), (100, 700)]:
+    # ns_step: the prior inverse / tau-derivative blocks (5, 140, 140), the
+    # Laplace-Hessian width (100, 700, 700), a width just past the switch
+    # from 2 x 4 to 8 x 4 register tiles (D > 256) alone and batched, the
+    # path's width at a batch of 100, and (correctness
+    # only) the widest prior block chol32 factors, where a block owns two row
+    # tiles. Each timed shape is also run on inputs one float into their
+    # buffers (the 4-byte copy path), which must give the same result.
+    for B, D in [(5, 140), (100, 700), (4, 260), (100, 400), (100, 140), (2, 1792)]:
         H = spd(B, D, 1.0, seed=D + 1)
         H64 = H.double()
         X = (0.9 * torch.cholesky_inverse(torch.linalg.cholesky(H64))).float().contiguous()
@@ -192,10 +200,20 @@ def phase_kernels():
             f"(<= {KERNEL_TOL} x max|X'| = {KERNEL_TOL * scale:.3e})")
         if not err <= KERNEL_TOL * scale:
             raise RuntimeError(f"ns_step disagrees with its plain version at ({B}, {D}, {D})")
+        if D == 1792:
+            continue
         # 2 X - X (H X) as two cuBLAS SGEMMs (TF32 off)
         timed("ns_step", B, D, err, lambda: ns_step(H, X), lambda: ns_step_plain(H, X),
               lambda: torch.baddbmm(X, X, torch.bmm(H, X), beta=2.0, alpha=-1.0),
               ns_step_bound(B, D))
+        Hoff, Xoff = (torch.empty(t.numel() + 1, device="cuda")[1:].view_as(t).copy_(t)
+                      for t in (H, X))
+        if not torch.equal(ns_step(Hoff, Xoff), out):
+            raise RuntimeError(f"ns_step on offset inputs differs at ({B}, {D}, {D})")
+        off_ms = median_ms(lambda: ns_step(Hoff, Xoff))
+        rows[("ns_step", B, D)]["offset_ms"] = off_ms
+        log(f"ns_step ({B}, {D}, {D}) on inputs one float off 16-byte alignment: same "
+            f"result; {off_ms:.4f} ms (aligned {rows[('ns_step', B, D)]['ms']:.4f} ms)")
     return rows
 
 

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (``pgpfa_torch/csrc/*.cu``).
 
-``nvcc`` compiles every source into one shared library with a plain C
-interface, for ``sm_90a`` (Hopper), into ``build/pgpfa_torch/`` at the root
-of the checkout. The file name carries a hash of the sources and flags, so an
-edited source is rebuilt at its next use and an unchanged one is loaded as it
-is. The library is loaded with ``ctypes``; nothing here includes PyTorch's
-headers, which keeps a cold build to seconds.
+One ``nvcc`` per source, all started together, compiles for ``sm_90a``
+(Hopper); a last ``nvcc`` links the objects into one shared library with a
+plain C interface, in ``build/pgpfa_torch/`` at the root of the checkout.
+The file name carries a hash of the sources and flags, so an edited source is
+rebuilt at its next use and an unchanged one is loaded as it is. The library
+is loaded with ``ctypes``; nothing here includes PyTorch's headers, which
+keeps a cold build to seconds.
 
 Nothing is built at import time: :func:`library` builds on its first call.
 A missing ``nvcc`` or a failed build raises.
@@ -24,10 +25,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "pgpfa_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -71,15 +70,25 @@ def build() -> tuple[Path, str]:
     if so.exists():
         return so, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
+    nvcc, tmp = _nvcc(), so.with_suffix(f".{os.getpid()}.tmp")
+    objs = [tmp.with_suffix(f".{src.stem}.o") for src in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+            for src, o in zip(_sources(), objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+    runs = list(zip(cmds, [p.returncode for p in procs], outs))
+    if all(rc == 0 for _, rc, _ in runs):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        runs.append((link, proc.returncode, proc.stdout + proc.stderr))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    for cmd, rc, out in runs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
     os.replace(tmp, so)
-    return so, proc.stdout + proc.stderr
+    return so, "".join(out for _, _, out in runs)
 
 
 @functools.cache

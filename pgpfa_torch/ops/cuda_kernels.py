@@ -19,13 +19,38 @@ from __future__ import annotations
 
 import torch
 
-# Largest D whose shared-memory footprint fits one H100 block (227 KB):
-# ns_step keeps two D x 32 f32 tiles plus a 64 x 33 staging tile; chol32 one
-# nbw-column f32 panel over nbw + 32 * ceil((D - nbw) / 32) rows, 4 rows of
-# padding per column, and 64 reciprocal pivots, with nbw = 64 where that
-# fits (D <= 896) and 32 above (chol32_smem_bytes).
+# Largest D whose shared-memory footprint fits one H100 block (227 KB).
+# ns_step: each block of a cluster holds its RB x 64 slice of G = H X and a
+# ring of load stages (ns_step_smem_bytes); chol32: one nbw-column f32 panel
+# over nbw + 32 * ceil((D - nbw) / 32) rows, 4 rows of padding per column,
+# and 64 reciprocal pivots, with nbw = 64 where that fits (D <= 896) and 32
+# above (chol32_smem_bytes).
 _SMEM_LIMIT = 232448
-NS_STEP_MAX_D = (_SMEM_LIMIT // 4 - 64 * 33) // 64
+
+
+def _ns_step_micro_rows(D: int) -> int:
+    return 2 if D <= 256 else 8
+
+
+def ns_step_block_rows(D: int) -> int:
+    """Rows of ``G`` each block of an ns_step cluster owns: one tile of
+    ``16 * TM`` rows, or ``ceil(D / 8)`` rounded up to 4 where eight tiles do
+    not cover ``D``; the cluster has ``ceil(D / RB) <= 8`` blocks."""
+    eighth = -(-D // 8)
+    return max(16 * _ns_step_micro_rows(D), 4 * -(-eighth // 4))
+
+
+def ns_step_smem_bytes(D: int) -> int:
+    """Dynamic shared memory of an ns_step block at width ``D`` (mirrors
+    ``smem_floats`` in ``csrc/ns_step.cu``): the ``RB x 64`` slice of G plus
+    3 or 6 stages (TM = 8 or 2) of a ``16 TM x 36`` A chunk and a
+    ``32 x 64`` X or G chunk."""
+    tm = _ns_step_micro_rows(D)
+    stages = 6 if tm == 2 else 3
+    return 4 * (ns_step_block_rows(D) * 64 + stages * (16 * tm * 36 + 32 * 64))
+
+
+NS_STEP_MAX_D = max(D for D in range(1, 8192) if ns_step_smem_bytes(D) <= _SMEM_LIMIT)
 
 
 def _chol32_panel_bytes(D: int, nbw: int) -> int:
@@ -81,10 +106,15 @@ def _check_batch(name: str, *ts: torch.Tensor):
         raise ValueError(f"{name}: expected (B, D, D) or (D, D), got {tuple(t0.shape)}")
 
 
-def _launch(name: str, fn, *args):
+def _launch(name: str, fn: str, device: torch.device, *args):
+    """Call the library's ``fn(*args, stream)`` on ``device`` and PyTorch's
+    current stream there; raise on a CUDA error. The raw stream handle is
+    read without building a ``torch.cuda.Stream`` object, whose host cost
+    exceeded the launch's own at the path's small shapes."""
     from pgpfa_torch.ops._build import library
 
-    err = getattr(library(), fn)(*args)
+    with torch.cuda.device(device):
+        err = getattr(library(), fn)(*args, torch._C._cuda_getCurrentRawStream(device.index))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
 
@@ -102,10 +132,8 @@ def ns_step(H32: torch.Tensor, X32: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"ns_step: (B, D) = ({B}, {D}) exceeds ({_MAX_GRID_Y}, {NS_STEP_MAX_D})")
     out = torch.empty_like(X3)
     if B and D:
-        with torch.cuda.device(H3.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            _launch("ns_step", "pgpfa_ns_step",
-                    H3.data_ptr(), X3.data_ptr(), out.data_ptr(), B, D, stream)
+        _launch("ns_step", "pgpfa_ns_step", H3.device,
+                H3.data_ptr(), X3.data_ptr(), out.data_ptr(), B, D)
         ns_step.launches += 1
     return out[0] if squeeze else out
 
@@ -128,9 +156,7 @@ def chol32(A32: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"chol32: D = {D} exceeds {CHOL32_MAX_D}")
     out = torch.empty_like(A3)
     if B and D:
-        with torch.cuda.device(A3.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            _launch("chol32", "pgpfa_chol32", A3.data_ptr(), out.data_ptr(), B, D, stream)
+        _launch("chol32", "pgpfa_chol32", A3.device, A3.data_ptr(), out.data_ptr(), B, D)
         chol32.launches += 1
     return out[0] if squeeze else out
 

@@ -1,0 +1,133 @@
+#!/usr/bin/env python3
+"""Where the device time of the port's fit goes, on one NVIDIA GPU.
+
+    python3 pgpfa_torch/tools/profile_fit.py
+
+1. fit: a 2-iteration f64 batch Laplace fit of the Stevenson-shaped
+   surrogate (100 trials x 90 neurons x 140 bins, xdim 5, Poisson-PCA init
+   with seed 0), after a one-iteration warm-up fit, under ``torch.profiler``.
+   Prints the wall time (profiler on), the summed device time of every
+   kernel and copy, so the device's busy and idle share of the wall, the
+   device time by the op that launched it (the hand-written kernels, which
+   no ATen op launches, by kernel name), largest first.
+2. ns_step: the kernel's device time against the two cuBLAS SGEMMs that
+   compute the same function (``baddbmm(X, X, bmm(H, X), beta=2,
+   alpha=-1)``), mean over 10 calls each, at the path's (5, 140, 140) and at
+   (100, 700, 700); and the host time of one wrapper call (median of 200,
+   each after a synchronisation, so no launch waits for the card).
+
+Prints the card's ``nvidia-smi`` name and power limit first.
+"""
+
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+REPO = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(REPO))
+
+from pgpfa_torch import FitConfig, fit, initialize_params, stevenson_surrogate  # noqa: E402
+from pgpfa_torch.ops.cuda_kernels import ns_step  # noqa: E402
+
+OWN_KERNELS = ("ns_step_kernel", "chol32_kernel")
+
+
+def device_events(prof):
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def kernel_us(prof, pattern):
+    """Mean device time and count of the kernels whose name holds ``pattern``."""
+    ts = [e.time_range.elapsed_us() for e in device_events(prof) if pattern in e.name]
+    return (float(np.mean(ts)) if ts else float("nan")), len(ts)
+
+
+def profile_fit():
+    ds = stevenson_surrogate(xdim=5, seed=2011)
+    init = initialize_params(5, ds.ydim, ds, seed=0)
+    fit(init, ds.Y, ds.binSize, FitConfig(max_em_iter=1), device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit(init, ds.Y, ds.binSize, FitConfig(max_em_iter=2), device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.time_range.elapsed_us() for e in device_events(prof)) / 1e6
+    print(f"fit: 2 EM iterations, wall {wall:.4f} s (profiler on), device busy {busy:.4f} s "
+          f"= {100 * busy / wall:.1f}% of the wall, idle {100 * (1 - busy / wall):.1f}%")
+
+    by_op = defaultdict(float)
+    counts = defaultdict(int)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU and e.self_device_time_total > 0:
+            by_op[e.key] += e.self_device_time_total / 1e6
+            counts[e.key] += e.count
+    for e in device_events(prof):
+        for name in OWN_KERNELS:
+            if name in e.name:
+                by_op[f"{name} (hand-written)"] += e.time_range.elapsed_us() / 1e6
+                counts[f"{name} (hand-written)"] += 1
+    print(f"{'op':<48} {'device ms':>10} {'share':>7} {'calls':>6}")
+    ranked = sorted(by_op.items(), key=lambda kv: -kv[1])
+    for key, s in [kv for i, kv in enumerate(ranked) if i < 14 or "hand-written" in kv[0]]:
+        print(f"{key[:48]:<48} {1e3 * s:>10.3f} {100 * s / busy:>6.1f}% {counts[key]:>6}")
+
+
+def spd(B, D, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    M = torch.randn(B, D, D, generator=g, device="cuda", dtype=torch.float64) / D**0.5
+    return M @ M.transpose(1, 2) + torch.eye(D, device="cuda", dtype=torch.float64)
+
+
+def profile_ns_step():
+    for B, D in [(5, 140), (100, 700)]:
+        H64 = spd(B, D, D + 1)
+        H = H64.float().contiguous()
+        X = (0.9 * torch.cholesky_inverse(torch.linalg.cholesky(H64))).float().contiguous()
+
+        def library():
+            return torch.baddbmm(X, X, torch.bmm(H, X), beta=2.0, alpha=-1.0)
+
+        for _ in range(3):
+            ns_step(H, X)
+            library()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                ns_step(H, X)
+                torch.cuda.synchronize()
+                library()
+                torch.cuda.synchronize()
+        k_us, k_n = kernel_us(prof, "ns_step_kernel")
+        gemm = [e.time_range.elapsed_us() for e in device_events(prof) if "gemm" in e.name]
+        host = []
+        for _ in range(200):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ns_step(H, X)
+            host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        print(f"ns_step ({B}, {D}, {D}): kernel {k_us:.2f} us device ({k_n} calls); "
+              f"two cuBLAS SGEMMs {2 * float(np.mean(gemm)):.2f} us device ({len(gemm)} kernels); "
+              f"wrapper host {1e6 * float(np.median(host)):.2f} us per call")
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_fit: needs a CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"nvidia-smi: {smi}; torch {torch.__version__}")
+    profile_fit()
+    profile_ns_step()
+
+
+if __name__ == "__main__":
+    main()

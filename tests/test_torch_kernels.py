@@ -22,7 +22,7 @@ import torch
 
 from pgpfa_torch.ops import _build, cuda_kernels
 from pgpfa_torch.ops.cuda_kernels import chol32, chol32_plain, ns_step, ns_step_plain
-from torch_helpers import npy, requires_cuda, spd_batch
+from torch_helpers import npy, rel_err, requires_cuda, spd_batch
 
 
 def _jnp():
@@ -201,8 +201,15 @@ def test_library_path_keys_on_sources():
 
 def test_shared_memory_limits():
     """Largest D whose tiles fit one block's 227 KB of shared memory."""
-    assert 4 * (2 * cuda_kernels.NS_STEP_MAX_D * 32 + 64 * 33) <= 232448
-    assert 4 * (2 * (cuda_kernels.NS_STEP_MAX_D + 1) * 32 + 64 * 33) > 232448
+    ns, D = cuda_kernels.ns_step_smem_bytes, cuda_kernels.NS_STEP_MAX_D
+    assert ns(D) <= 232448 < ns(D + 1)
+    # the G slice (RB x 64) and 6 stages of 32 x 36 + 32 x 64 at the path's
+    # width; 3 stages of 128 x 36 + 32 x 64 at the Laplace Hessian's width,
+    # two blocks to an SM
+    assert ns(140) == 4 * (32 * 64 + 6 * (32 * 36 + 32 * 64))
+    assert ns(700) == 4 * (128 * 64 + 3 * (128 * 36 + 32 * 64))
+    assert 2 * (ns(700) + 1024) <= 228 * 1024
+    assert ns(D) == 4 * (cuda_kernels.ns_step_block_rows(D) * 64 + 3 * (128 * 36 + 32 * 64))
     smem, D = cuda_kernels.chol32_smem_bytes, cuda_kernels.CHOL32_MAX_D
     assert smem(D) <= 232448 < smem(D + 1)
     assert smem(700) == 4 * (64 * 708 + 64)  # the Laplace Hessian's width, 64-wide panels
@@ -220,7 +227,33 @@ def test_chol32_takes_the_laplace_hessian_widths(xdim, T):
     assert cuda_kernels.chol32_smem_bytes(xdim * T) <= 232448
 
 
+@pytest.mark.parametrize("T", [1, 140, 256, 257, 700, 1000, 1025, 1760, 1792])
+def test_ns_step_takes_the_chol32_widths(T):
+    """Every width chol32 factors, ns_step takes: blocks_inv runs two f32
+    steps on the (xdim, T, T) prior blocks whose T x T factor is chol32's,
+    so T up to CHOL32_MAX_D must fit one block's shared memory with a
+    cluster of at most 8 blocks."""
+    assert cuda_kernels.NS_STEP_MAX_D >= cuda_kernels.CHOL32_MAX_D
+    assert T <= cuda_kernels.CHOL32_MAX_D
+    assert cuda_kernels.ns_step_smem_bytes(T) <= 232448
+    assert -(-T // cuda_kernels.ns_step_block_rows(T)) <= 8
+
+
 # -- on the card ----------------------------------------------------------------
+
+
+@requires_cuda
+def test_cuda_raw_stream_is_current_stream():
+    """The wrappers read the current stream through torch's private
+    ``_cuda_getCurrentRawStream``: it must be the handle the public API
+    gives, on the default stream and inside a side stream, so that a torch
+    release that changes it fails here and not inside a kernel."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    raw = torch._C._cuda_getCurrentRawStream
+    assert raw(dev.index) == torch.cuda.current_stream(dev).cuda_stream
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        assert raw(dev.index) == side.cuda_stream != torch.cuda.default_stream(dev).cuda_stream
 
 
 @requires_cuda
@@ -295,21 +328,91 @@ def test_cuda_chol32_reads_lower_only_at_700():
     assert torch.equal(L, L.tril())
 
 
-@requires_cuda
-@pytest.mark.parametrize("B,D", [(5, 140), (100, 700), (3, 33)])
-def test_cuda_ns_step_matches_plain(B, D):
-    """Kernel vs two cuBLAS f32 matmuls (TF32 off): 2e-5 relative to max|X|."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    rng = np.random.default_rng(D)
-    H = spd_batch(rng, B, D, ridge=1.0)
+def _ns_inputs_cuda(B, D, seed):
+    """f32 ``H`` (eigenvalues in [1, 5]) and ``X = 0.9 H^{-1}`` on the card."""
+    H = spd_batch(np.random.default_rng(seed), B, D, ridge=1.0)
     X = torch.from_numpy((0.9 * np.linalg.inv(H)).astype(np.float32)).cuda()
-    H = torch.from_numpy(H.astype(np.float32)).cuda()
+    return torch.from_numpy(H.astype(np.float32)).cuda(), X
+
+
+@requires_cuda
+@pytest.mark.parametrize("B,D", [(5, 140), (100, 700), (3, 33), (1, 1), (5, 31), (5, 32),
+                                 (5, 63), (5, 64), (5, 65), (5, 127), (5, 128), (5, 129),
+                                 (5, 139), (100, 140), (3, 256), (3, 257), (3, 512), (3, 513),
+                                 (1, 1000), (5, 1000), (2, 1024), (2, 1025), (2, 1792),
+                                 (1, cuda_kernels.NS_STEP_MAX_D)])
+def test_cuda_ns_step_matches_plain(B, D):
+    """Kernel vs two cuBLAS f32 matmuls (TF32 off): 2e-5 relative to max|X'|.
+    The widths reach the edges of the 32-deep chunks, the 64-column tiles,
+    the row tiles of 32 and 128 (D = 256/257), a cluster of 4 or 5 blocks
+    (D = 512/513), a block owning
+    more than one row tile (D > 1024), both copy paths (D % 4 == 0 or not),
+    and the widest D."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    H, X = _ns_inputs_cuda(B, D, D)
     n = ns_step.launches
     out = ns_step(H, X)
     torch.cuda.synchronize()
     assert ns_step.launches == n + 1
     want = ns_step_plain(H, X)
     assert float((out - want).abs().max()) <= 2e-5 * float(want.abs().max())
+
+
+@requires_cuda
+@pytest.mark.parametrize("B,D", [(100, 700), (5, 140)])
+def test_cuda_ns_step_offset_input(B, D):
+    """Contiguous views one float into their buffers (rows not 16-byte
+    aligned: the 4-byte copy path) give the same result as the aligned
+    inputs (the 16-byte path): the same sums in the same order."""
+    H, X = _ns_inputs_cuda(B, D, D + 1)
+    bufs = [torch.empty(H.numel() + 1, device="cuda") for _ in range(2)]
+    Hoff, Xoff = (b[1:].view_as(H) for b in bufs)
+    Hoff.copy_(H)
+    Xoff.copy_(X)
+    assert Hoff.data_ptr() % 16 != 0 and Xoff.data_ptr() % 16 != 0
+    torch.testing.assert_close(ns_step(Hoff, Xoff), ns_step(H, X), rtol=0, atol=0)
+
+
+@requires_cuda
+def test_cuda_ns_step_unbatched():
+    """A (D, D) pair gives a (D, D) result, the batched call's matrix."""
+    H, X = _ns_inputs_cuda(3, 140, 5)
+    out = ns_step(H[1].contiguous(), X[1].contiguous())
+    assert out.shape == (140, 140)
+    torch.testing.assert_close(out, ns_step(H, X)[1], rtol=0, atol=0)
+
+
+@requires_cuda
+def test_cuda_ns_step_fresh_output_inputs_untouched():
+    """The output is a new tensor and H, X are left as they were."""
+    H, X = _ns_inputs_cuda(5, 700, 6)
+    H0, X0 = H.clone(), X.clone()
+    out = ns_step(H, X)
+    torch.cuda.synchronize()
+    assert out.data_ptr() not in (H.data_ptr(), X.data_ptr())
+    assert torch.equal(H, H0) and torch.equal(X, X0)
+
+
+@requires_cuda
+def test_cuda_blocks_inv_at_t1000():
+    """blocks_inv of a (1, 1000, 1000) RBF prior on the card (chol32 and two
+    f32 ns_step launches at D = 1000, then two f64 steps) against the same
+    call on the CPU: 1e-9 relative. tau = 0.04 s at 10 ms bins gives
+    kappa(K) = 1.0e4, so two f64 steps leave ~(kappa eps32)^4 ~ 1e-13 (at the
+    init's longest timescales kappa reaches 1e5-1e6 and 1e-9 is out of reach)."""
+    from pgpfa_torch.models.params import rbf_kernel
+    from pgpfa_torch.ops.blockmat import blocks_inv
+
+    tau = torch.tensor([0.04], dtype=torch.float64)
+    K = rbf_kernel(tau, 1000, 10.0)
+    ev = np.linalg.eigvalsh(K[0].numpy())
+    assert ev[-1] / ev[0] < 1.1e4
+    n = ns_step.launches
+    got = blocks_inv(K.cuda())
+    torch.cuda.synchronize()
+    assert ns_step.launches == n + 2
+    want = blocks_inv(K)
+    assert rel_err(got, want) <= 1e-9
 
 
 @requires_cuda
