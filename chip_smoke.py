@@ -28,6 +28,16 @@ Phases (any failure raises and the exit code is not 0):
    (``ORACLE_TRAJ_STEVENSON.json``). Then one more E-step at the fitted
    parameters, timed by phase, and the backward-error check of phase 4 on
    the Hessians at its modes, where every trial's matrix differs.
+6. vi: the dual variational E-step. (a) One cold variational EM iteration
+   of the surrogate's first 2 trials (init from all 100) with each solver:
+   the bound within 1e-3 of the original NumPy reference's run of the same
+   slice (``BASELINE_MEASURED_VI_STEVENSON.json``), post_loglik within
+   ``VI_PLL_TOL`` of it. (b) ``_dual_eval`` at that slice's converged rho on
+   the card against the CPU (both kernels against their plain versions on
+   the path's own matrices). (c) A one-iteration warm-up, then 3 timed
+   dual-Newton EM iterations of all 100 trials: both kernels launched at
+   (100, 700, 700), finite values, a bound that does not fall. (d) One warm
+   iteration at the fitted parameters, timed by phase.
 
 The last three lines of standard output are one JSON object with the
 kernels' numbers, the ``nvidia-smi`` name and power limit, and
@@ -66,6 +76,27 @@ KERNEL_TOL = 2e-5
 # The kernel's backward error on the Laplace Hessian may be at most this many
 # times cuSOLVER's, matrix by matrix.
 BACKWARD_RATIO = 2.0
+# The variational anchor: the original NumPy reference's one-iteration run of
+# the surrogate's first 2 trials (BASELINE_MEASURED_VI_STEVENSON.json). The
+# JAX package's CPU runs of this slice (f64; pgpfa.infer.variational, cold
+# E-step at the same init) gave bound -7405.243808728 (Newton) and
+# -7405.243808210 (L-BFGS), 5.6e-5 and 5.5e-5 from the file, and post_loglik
+# -5186.940741164 and -5186.940736089, 1.08e-4 and 1.13e-4 from it:
+# VI_PLL_TOL is twice the larger, rounded up.
+VI_VLB_TOL = 1e-3
+VI_PLL_TOL = 2.5e-4
+RIDGE = 1e-6
+# _dual_eval card against CPU: the cost to 1e-10 relative. Sigma is the
+# f64-refined inverse of an f32 factor, ~(kappa eps32)^2 <= 4e-7 relative on
+# each side at this slice's equilibrated condition (kappa ~ 1e4; 2.6e-9
+# measured against NumPy's exact inverse on a CPU). It enters the gradient
+# lam * g only through the sandwich term 0.5 lam s, s = diag(C^T Sigma C),
+# and the direction C Sigma C^T w - g through g's 0.5 s and through
+# C Sigma C^T w: each is held to 1e-6 of the largest entries of its terms.
+DUAL_COST_TOL = 1e-10
+DUAL_EVAL_TOL = 1e-6
+# variational EM is monotone up to the dual solver's tolerance
+VLB_MONOTONE_TOL = 1e-6
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -342,12 +373,139 @@ def phase_slice():
     return launches
 
 
+def phase_vi():
+    from pgpfa_torch import FitConfig, fit, initialize_params, stevenson_surrogate
+    from pgpfa_torch.convert import params_from_numpy
+    from pgpfa_torch.infer import variational as V
+    from pgpfa_torch.learn.mstep_gp import learn_tau
+    from pgpfa_torch.learn.mstep_obs import learn_cd
+    from pgpfa_torch.models.params import rbf_kernel
+    from pgpfa_torch.models.poisson_gpfa import neg_log_posterior
+    from pgpfa_torch.ops.blockmat import blocks_inv, cov_views
+    from pgpfa_torch.ops.cuda_kernels import chol32, ns_step
+
+    ref = json.loads((REPO / "BASELINE_MEASURED_VI_STEVENSON.json").read_text())
+    ds = stevenson_surrogate(xdim=5, seed=2011)
+    init = initialize_params(5, ds.ydim, ds, seed=0)
+    T, bin_ms = ds.T, float(ds.binSize)
+
+    def cfg(solver, n):
+        return FitConfig(inference_method="variational", vi_solver=solver, max_em_iter=n)
+
+    # (a) the 2-trial anchor, one cold EM iteration per solver
+    for solver in ("newton", "lbfgs"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = fit(init, ds.Y[:2], bin_ms, cfg(solver, 1), device="cuda")
+        vlb, pll = float(res.var_lower_bound[0]), float(res.post_loglik[0])
+        wall = time.time() - t0
+        dv, dp = abs(vlb - ref["var_lower_bound"][0]), abs(pll - ref["post_loglik"][0])
+        log(f"vi anchor, {solver}, first 2 trials, 1 cold EM iteration ({wall:.3f} s): "
+            f"bound {vlb!r} vs reference {ref['var_lower_bound'][0]!r} (|diff| {dv:.3e}, "
+            f"tolerance {VI_VLB_TOL:.0e}); post_loglik {pll!r} vs reference "
+            f"{ref['post_loglik'][0]!r} (|diff| {dp:.3e}, tolerance {VI_PLL_TOL:.1e})")
+        if not (dv <= VI_VLB_TOL and dp <= VI_PLL_TOL):
+            raise RuntimeError(f"vi anchor ({solver}) off the reference")
+
+    # (b) _dual_eval on the card against the CPU at the slice's converged rho
+    p = params_from_numpy(init, "cuda")
+    Y2 = torch.as_tensor(ds.Y[:2], device="cuda")
+    _, _, _, rho = V.vi_estep_from_arrays(p.C, p.d, p.tau, Y2, T, bin_ms, solver="newton",
+                                          compute_cov=False)
+    K = rbf_kernel(p.tau, T, bin_ms)
+    Kinv = blocks_inv(K)
+    args = (rho, Y2, p.C, p.d, K, Kinv)
+    f, w, dr = (x.cpu() for x in V._dual_eval(*args, RIDGE))
+    f_c, w_c, dr_c = V._dual_eval(*(x.cpu() for x in args), RIDGE)
+    rho_c, Y_c, C_c, d_c, K_c = (x.cpu() for x in args[:5])
+    lam = torch.exp(rho_c)
+    g = w_c / lam
+    half_s = rho_c - g - (d_c[:, None] - C_c @ V._prior_terms(rho_c, Y_c, C_c, d_c, K_c)[2])
+    err_f = float(((f - f_c) / f_c).abs().max())
+    err_w, scale_w = float((w - w_c).abs().max()), float((lam * half_s).abs().max())
+    err_dr = float((dr - dr_c).abs().max())
+    scale_dr = float(half_s.abs().max() + (dr_c + g).abs().max())
+    log(f"vi _dual_eval (2, 700, 700) card vs CPU at the converged rho: cost rel {err_f:.3e} "
+        f"(tolerance {DUAL_COST_TOL:.0e}); gradient abs {err_w:.3e} (tolerance "
+        f"{DUAL_EVAL_TOL:.0e} x {scale_w:.3e}); direction abs {err_dr:.3e} (tolerance "
+        f"{DUAL_EVAL_TOL:.0e} x {scale_dr:.3e}); max|gradient| {float(w_c.abs().max()):.3e}")
+    if not (err_f <= DUAL_COST_TOL and err_w <= DUAL_EVAL_TOL * scale_w
+            and err_dr <= DUAL_EVAL_TOL * scale_dr):
+        raise RuntimeError("vi _dual_eval on the card disagrees with the CPU")
+
+    # (c) full width: warm-up, then 3 timed dual-Newton EM iterations
+    n_iter = 3
+    fit(init, ds.Y, bin_ms, cfg("newton", 1), device="cuda")
+    for k in (chol32, ns_step):
+        k.launches = 0
+        k.launches_by_shape.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = fit(init, ds.Y, bin_ms, cfg("newton", n_iter), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"chol32": chol32.launches, "ns_step": ns_step.launches}
+    wide = {k.__name__: k.launches_by_shape[(ds.numTrials, 5 * T)] for k in (chol32, ns_step)}
+    vlb, pll = res.var_lower_bound.cpu().numpy(), res.post_loglik.cpu().numpy()
+    log(f"vi fit: Y {ds.Y.shape}, dual-Newton, launches {launches}, at "
+        f"({ds.numTrials}, {5 * T}, {5 * T}) {wide}")
+    log(f"vi fit: var_lower_bound {vlb.tolist()}; post_loglik {pll.tolist()}")
+    log(f"vi fit: {wall:.3f} s for {n_iter} EM iterations = {wall / n_iter:.3f} s/EM-iteration "
+        f"(the first E-step cold)")
+    if not all(v > 0 for v in wide.values()):
+        raise RuntimeError(f"a kernel was not launched at full width in the vi fit: {wide}")
+    if vlb.shape != (n_iter,) or not (np.all(np.isfinite(vlb)) and np.all(np.isfinite(pll))):
+        raise RuntimeError("vi fit: bound or post_loglik not finite")
+    if not np.all(np.diff(vlb) >= -VLB_MONOTONE_TOL * np.abs(vlb[1:])):
+        raise RuntimeError(f"vi fit: the bound fell: {vlb.tolist()}")
+
+    # (d) one warm iteration at the fitted parameters, warm-started from the
+    # dual solved at the parameters one M-step earlier
+    c = cfg("newton", 1)
+    Y = torch.as_tensor(ds.Y, device="cuda")
+    C1, d1, tau1 = res.C_seq[-2], res.d_seq[-2], res.tau_seq[-2]
+    K1 = rbf_kernel(tau1, T, bin_ms)
+    rho1, _ = V._solve_dual(C1, d1, K1, blocks_inv(K1), Y, torch.zeros_like(Y), c.vi_maxiter,
+                            c.vi_gtol, RIDGE, "newton")
+    C, d, tau = res.C, res.d, res.tau
+    for k in (chol32, ns_step):
+        k.launches_by_shape.clear()
+    torch.cuda.synchronize()
+    t = [time.time()]
+    K = rbf_kernel(tau, T, bin_ms)
+    Kinv = blocks_inv(K)
+    rho, _ = V._solve_dual(C, d, K, Kinv, Y, rho1, c.vi_maxiter_warm, c.vi_gtol, RIDGE, "newton")
+    torch.cuda.synchronize()
+    t.append(time.time())
+    n_eval = chol32.launches_by_shape[(ds.numTrials, 5 * T)]
+    cov = V._posterior_cov(rho, C, Kinv, RIDGE)
+    vsm, vsm_gp = cov_views(cov, 5, T)
+    torch.cuda.synchronize()
+    t.append(time.time())
+    means = V.vi_posterior_mean(rho, Y, C, K)
+    float(neg_log_posterior(means, Y, C, d, Kinv).mean())
+    t.append(time.time())
+    learn_cd(Y, means, vsm, C, d, maxiter=c.cd_newton_iters)
+    torch.cuda.synchronize()
+    t.append(time.time())
+    learn_tau(means, vsm_gp, tau, bin_ms, maxiter=c.tau_maxiter)
+    torch.cuda.synchronize()
+    t.append(time.time())
+    dt = np.diff(t)
+    log(f"vi phase split (one warm iteration, {float(t[-1] - t[0]):.3f} s): dual solve "
+        f"{dt[0]:.3f} s ({n_eval} _dual_evals in {-(-n_eval // V.NEWTON_CHUNK)} chunks of "
+        f"{V.NEWTON_CHUNK}), covariance {dt[1]:.3f} s, neg_log_posterior {dt[2]:.4f} s, "
+        f"(C, d) M-step {dt[3]:.3f} s, tau M-step {dt[4]:.3f} s")
+    return launches
+
+
 def main():
     smi = phase_device()
     phase_build()
     rows = phase_kernels()
     phase_hessian()
     launches = phase_slice()
+    launches_vi = phase_vi()
 
     kernels = []
     for name, src, replaces, (B, D) in [
@@ -355,7 +513,8 @@ def main():
         ("ns_step", "pgpfa_torch/csrc/ns_step.cu", "pgpfa/ops/pallas_kernels.py:42", (5, 140)),
     ]:
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches[name], **rows[(name, B, D)],
+                        "launches": launches[name], "launches_vi": launches_vi[name],
+                        **rows[(name, B, D)],
                         "shapes": [r for (n, _, _), r in rows.items() if n == name]})
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,7 +1,8 @@
 """pgpfa_torch — Poisson Gaussian-Process Factor Analysis in PyTorch for NVIDIA Hopper.
 
-A port of the JAX package ``pgpfa`` (which stays the reference): batch
-Laplace EM, with the f32 factorization and the f32 Newton-Schulz step of its
+A port of the JAX package ``pgpfa`` (which stays the reference): batch EM
+with the Laplace or the dual variational E-step (dual-Newton or L-BFGS
+solver), with the f32 factorization and the f32 Newton-Schulz step of its
 mixed-precision solvers as hand-written CUDA kernels
 (``pgpfa_torch/csrc/``). Every function works on tensors of one device:
 on a CUDA device the kernels run, on the CPU their plain PyTorch versions.

@@ -131,17 +131,25 @@ def solve_psd_mixed(H: torch.Tensor, rhs: torch.Tensor, L32=None,
     return x
 
 
+def _inv32(L32: torch.Tensor) -> torch.Tensor:
+    """``(L L^T)^{-1}`` in f32 from the f32 factor."""
+    return torch.cholesky_solve(_eye(L32.shape[-1], L32).expand(L32.shape), L32, upper=False)
+
+
 def inv_psd_mixed(H: torch.Tensor, L32=None, ns_steps: int = 3,
-                  f64_steps: int = 1) -> torch.Tensor:
+                  f64_steps: int = 1, X32=None) -> torch.Tensor:
     """SPD inverse by an f32 Cholesky plus Newton-Schulz refinement
     ``X <- X (2I - H X)``: the first ``ns_steps - f64_steps`` steps in f32 (the
-    kernel), the last ``f64_steps`` with an f64 residual. Symmetrized."""
+    kernel), the last ``f64_steps`` with an f64 residual. Symmetrized.
+    ``X32``, the f32 inverse from ``L32``, may be passed where the caller
+    already has it."""
     D = H.shape[-1]
     if L32 is None:
         L32 = chol32(H)
     f64_steps = min(f64_steps, ns_steps)
     H32 = H.to(torch.float32).contiguous()
-    X32 = torch.cholesky_solve(_eye(D, L32).expand(L32.shape), L32, upper=False)
+    if X32 is None:
+        X32 = _inv32(L32)
     for _ in range(ns_steps - f64_steps):
         X32 = cuda_kernels.ns_step(H32, X32.contiguous())
     X = X32.to(H.dtype)
@@ -171,9 +179,10 @@ def _logdet_series(A: torch.Tensor) -> torch.Tensor:
     return -(tr1 + tr2 / 2.0 + tr3 / 3.0 + tr4 / 4.0)
 
 
-def _logdet_equilibrated(Hs, L32, s, dtype):
-    """logdet of the Jacobi-equilibrated ``Hs`` (f32 factor ``L32``) plus the
-    de-equilibration term ``-2 sum log s``.
+def _logdet_equilibrated(Hs, L32, s, dtype, X32=None):
+    """logdet of the Jacobi-equilibrated ``Hs`` (f32 factor ``L32``, f32
+    inverse ``X32`` from it if given) plus the de-equilibration term
+    ``-2 sum log s``.
 
     With ``G = Ld Ld^T`` (exact product of the f32 factor) and ``X`` the f32
     inverse: ``logdet Hs = logdet(G) + logdet(I - R) - logdet(I + E)``,
@@ -182,7 +191,7 @@ def _logdet_equilibrated(Hs, L32, s, dtype):
     """
     D = Hs.shape[-1]
     eye = _eye(D, Hs, dtype)
-    X = torch.cholesky_solve(_eye(D, L32).expand(L32.shape), L32, upper=False).to(dtype)
+    X = (_inv32(L32) if X32 is None else X32).to(dtype)
     Ld = L32.to(dtype)
     base = 2.0 * torch.log(Ld.diagonal(dim1=-2, dim2=-1)).sum(-1) - 2.0 * torch.log(s).sum(-1)
     R = eye - X @ Hs
@@ -190,12 +199,45 @@ def _logdet_equilibrated(Hs, L32, s, dtype):
     return base + _logdet_series(R) - _logdet_series(-E)
 
 
+def _equilibrate(H: torch.Tensor):
+    """``(D H D, s)`` with ``D = diag(s)``, ``s = diag(H)^{-1/2}``: unit
+    diagonal, so the f32 factor's error stays small."""
+    s = 1.0 / torch.sqrt(H.diagonal(dim1=-2, dim2=-1))
+    return H * (s[..., :, None] * s[..., None, :]), s
+
+
+class _LogdetPsdMixed(torch.autograd.Function):
+    """logdet with the exact derivative ``d logdet H = <H^{-1}, dH>``, the
+    inverse from :func:`inv_psd_mixed`; autograd never enters the f32 factor."""
+
+    @staticmethod
+    def forward(ctx, H):
+        ctx.save_for_backward(H)
+        Hs, s = _equilibrate(H)
+        return _logdet_equilibrated(Hs, chol32(Hs), s, H.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (H,) = ctx.saved_tensors
+        return g[..., None, None] * inv_psd_mixed(H)
+
+
 def logdet_psd_mixed(H: torch.Tensor) -> torch.Tensor:
     """f64-accurate ``log det`` of SPD matrices ``(..., D, D)`` from an f32
-    factorization of the Jacobi-equilibrated matrix."""
-    s = 1.0 / torch.sqrt(H.diagonal(dim1=-2, dim2=-1))
-    Hs = H * (s[..., :, None] * s[..., None, :])
-    return _logdet_equilibrated(Hs, chol32(Hs), s, H.dtype)
+    factorization of the Jacobi-equilibrated matrix; differentiable by the
+    exact rule ``d logdet H = <H^{-1}, dH>``."""
+    return _LogdetPsdMixed.apply(H)
+
+
+def inv_logdet_psd_mixed(H: torch.Tensor, ns_steps: int = 3, f64_steps: int = 1):
+    """``(H^{-1}, logdet H)`` from one f32 factor of the equilibrated matrix;
+    the f32 inverse from it is also computed once and serves both."""
+    Hs, s = _equilibrate(H)
+    L32 = chol32(Hs)
+    X32 = _inv32(L32)
+    ld = _logdet_equilibrated(Hs, L32, s, H.dtype, X32=X32)
+    inv_s = inv_psd_mixed(Hs, L32=L32, ns_steps=ns_steps, f64_steps=f64_steps, X32=X32)
+    return inv_s * (s[..., :, None] * s[..., None, :]), ld
 
 
 def blocks_inv(K: torch.Tensor) -> torch.Tensor:

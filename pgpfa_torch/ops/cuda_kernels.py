@@ -10,12 +10,15 @@ Counterpart of ``pgpfa/ops/pallas_kernels.py`` (and of the Cholesky probe in
 * a plain PyTorch version (:func:`ns_step_plain`, :func:`chol32_plain`), used
   by the CPU path and by the tests that hold the kernel against it;
 * a count of launches, ``<wrapper>.launches``, raised by one for each kernel
-  launch and by nothing else.
+  launch and by nothing else, and the same count by shape,
+  ``<wrapper>.launches_by_shape[(B, D)]``.
 
 The kernels compute in full f32 FFMA, never TF32.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -135,10 +138,12 @@ def ns_step(H32: torch.Tensor, X32: torch.Tensor) -> torch.Tensor:
         _launch("ns_step", "pgpfa_ns_step", H3.device,
                 H3.data_ptr(), X3.data_ptr(), out.data_ptr(), B, D)
         ns_step.launches += 1
+        ns_step.launches_by_shape[(B, D)] += 1
     return out[0] if squeeze else out
 
 
 ns_step.launches = 0
+ns_step.launches_by_shape = Counter()
 
 
 def chol32(A32: torch.Tensor) -> torch.Tensor:
@@ -158,7 +163,9 @@ def chol32(A32: torch.Tensor) -> torch.Tensor:
     if B and D:
         _launch("chol32", "pgpfa_chol32", A3.device, A3.data_ptr(), out.data_ptr(), B, D)
         chol32.launches += 1
+        chol32.launches_by_shape[(B, D)] += 1
     return out[0] if squeeze else out
 
 
 chol32.launches = 0
+chol32.launches_by_shape = Counter()

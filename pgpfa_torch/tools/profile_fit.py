@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Where the device time of the port's fit goes, on one NVIDIA GPU.
 
-    python3 pgpfa_torch/tools/profile_fit.py
+    python3 pgpfa_torch/tools/profile_fit.py [laplace|variational]
 
-1. fit: a 2-iteration f64 batch Laplace fit of the Stevenson-shaped
-   surrogate (100 trials x 90 neurons x 140 bins, xdim 5, Poisson-PCA init
-   with seed 0), after a one-iteration warm-up fit, under ``torch.profiler``.
-   Prints the wall time (profiler on), the summed device time of every
-   kernel and copy, so the device's busy and idle share of the wall, the
-   device time by the op that launched it (the hand-written kernels, which
-   no ATen op launches, by kernel name), largest first.
+1. fit, under ``torch.profiler``, on the Stevenson-shaped surrogate (100
+   trials x 90 neurons x 140 bins, xdim 5, Poisson-PCA init with seed 0),
+   f64. ``laplace`` (the default): a 2-iteration batch Laplace fit after a
+   one-iteration warm-up fit. ``variational``: one warm dual-Newton EM
+   iteration (E-step, (C, d) and tau M-steps) at the parameters of a
+   2-iteration variational fit, its dual warm-started from the solution at
+   the parameters one M-step earlier. Prints the wall time (profiler on),
+   the summed device time of every kernel and copy, so the device's busy
+   and idle share of the wall, the device time by the ATen op that
+   launched it (the hand-written kernels, which no ATen op launches, by
+   kernel name), largest first.
 2. ns_step: the kernel's device time against the two cuBLAS SGEMMs that
    compute the same function (``baddbmm(X, X, bmm(H, X), beta=2,
    alpha=-1)``), mean over 10 calls each, at the path's (5, 140, 140) and at
@@ -34,6 +38,11 @@ REPO = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(REPO))
 
 from pgpfa_torch import FitConfig, fit, initialize_params, stevenson_surrogate  # noqa: E402
+from pgpfa_torch.infer import variational as V  # noqa: E402
+from pgpfa_torch.learn.mstep_gp import learn_tau  # noqa: E402
+from pgpfa_torch.learn.mstep_obs import learn_cd  # noqa: E402
+from pgpfa_torch.models.params import rbf_kernel  # noqa: E402
+from pgpfa_torch.ops.blockmat import blocks_inv  # noqa: E402
 from pgpfa_torch.ops.cuda_kernels import ns_step  # noqa: E402
 
 OWN_KERNELS = ("ns_step_kernel", "chol32_kernel")
@@ -49,24 +58,55 @@ def kernel_us(prof, pattern):
     return (float(np.mean(ts)) if ts else float("nan")), len(ts)
 
 
-def profile_fit():
+def laplace_run(ds, init):
+    """Warm-up fit; returns the profiled run and its label."""
+    fit(init, ds.Y, ds.binSize, FitConfig(max_em_iter=1), device="cuda")
+
+    def run():
+        fit(init, ds.Y, ds.binSize, FitConfig(max_em_iter=2), device="cuda")
+    return run, "2 EM iterations"
+
+
+def variational_run(ds, init):
+    """A 2-iteration variational fit and the dual solved at its first
+    parameters; returns one warm EM iteration at its final parameters."""
+    b, cfg = float(ds.binSize), FitConfig(inference_method="variational", max_em_iter=2)
+    res = fit(init, ds.Y, b, cfg, device="cuda")
+    Y = torch.as_tensor(ds.Y, device="cuda")
+    K1 = rbf_kernel(res.tau_seq[0], ds.T, b)
+    rho1, _ = V._solve_dual(res.C_seq[0], res.d_seq[0], K1, blocks_inv(K1), Y,
+                            torch.zeros_like(Y), cfg.vi_maxiter, cfg.vi_gtol, 1e-6, "newton")
+
+    def run():
+        inf, _, _, _ = V.vi_estep_from_arrays(
+            res.C, res.d, res.tau, Y, ds.T, b, rho_init=rho1, gtol=cfg.vi_gtol,
+            maxiter=cfg.vi_maxiter_warm, compute_cov=False, solver="newton")
+        learn_cd(Y, inf.post_mean, inf.post_vsm, res.C, res.d, maxiter=cfg.cd_newton_iters)
+        learn_tau(inf.post_mean, inf.post_vsm_gp, res.tau, b, maxiter=cfg.tau_maxiter)
+    return run, "1 warm variational EM iteration"
+
+
+def profile_fit(method):
     ds = stevenson_surrogate(xdim=5, seed=2011)
     init = initialize_params(5, ds.ydim, ds, seed=0)
-    fit(init, ds.Y, ds.binSize, FitConfig(max_em_iter=1), device="cuda")  # warm-up
+    run, label = {"laplace": laplace_run, "variational": variational_run}[method](ds, init)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fit(init, ds.Y, ds.binSize, FitConfig(max_em_iter=2), device="cuda")
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy = sum(e.time_range.elapsed_us() for e in device_events(prof)) / 1e6
-    print(f"fit: 2 EM iterations, wall {wall:.4f} s (profiler on), device busy {busy:.4f} s "
+    print(f"fit ({method}): {label}, wall {wall:.4f} s (profiler on), device busy {busy:.4f} s "
           f"= {100 * busy / wall:.1f}% of the wall, idle {100 * (1 - busy / wall):.1f}%")
 
     by_op = defaultdict(float)
     counts = defaultdict(int)
+    # ATen ops only: a hand-written kernel launched inside another CPU range
+    # (an autograd Function's forward, a runtime call) would be counted twice
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CPU and e.self_device_time_total > 0:
+        if (e.device_type == DeviceType.CPU and e.self_device_time_total > 0
+                and e.key.startswith("aten::")):
             by_op[e.key] += e.self_device_time_total / 1e6
             counts[e.key] += e.count
     for e in device_events(prof):
@@ -120,12 +160,15 @@ def profile_ns_step():
 
 
 def main():
+    method = sys.argv[1] if len(sys.argv) > 1 else "laplace"
+    if method not in ("laplace", "variational"):
+        raise SystemExit(f"profile_fit: unknown method {method!r}; choose laplace or variational")
     if not torch.cuda.is_available():
         raise SystemExit("profile_fit: needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"nvidia-smi: {smi}; torch {torch.__version__}")
-    profile_fit()
+    profile_fit(method)
     profile_ns_step()
 
 

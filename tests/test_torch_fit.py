@@ -77,14 +77,16 @@ def test_fit_takes_params_on_their_device(fits):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(inference_method="variational"), dict(em_mode="online"), dict(time_block=10),
+    dict(inference_method="variational", time_block=10), dict(em_mode="online"),
+    dict(time_block=10),
 ])
 def test_fitconfig_raises_for_unported_paths(kw):
     with pytest.raises(NotImplementedError):
         FitConfig(**kw)
 
 
-@pytest.mark.parametrize("kw", [dict(inference_method="mcmc"), dict(em_mode="minibatch")])
+@pytest.mark.parametrize("kw", [dict(inference_method="mcmc"), dict(em_mode="minibatch"),
+                                dict(vi_solver="auto")])
 def test_fitconfig_rejects_unknown_values(kw):
     with pytest.raises(ValueError):
         FitConfig(**kw)
