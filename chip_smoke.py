@@ -38,6 +38,22 @@ Phases (any failure raises and the exit code is not 0):
    dual-Newton EM iterations of all 100 trials: both kernels launched at
    (100, 700, 700), finite values, a bound that does not fall. (d) One warm
    iteration at the fitted parameters, timed by phase.
+7. wide: the kernels' wide paths (above ``CHOL32_SWITCH_D`` and
+   ``NS_STEP_SWITCH_D``). ``chol32`` against its plain version at
+   (2, 1793), (2, 2100), (1, 4096), (2, 8192), input untouched, and the
+   non-PD case at (2, 2100) with its neighbour exact; ``ns_step`` at
+   (1, 4769) and (2, 6000); timing rows at (4, 2048) and (2, 6000). Then the
+   path: ``blocks_inv`` of xdim-2 priors at T = 1800 and 4800 on the card
+   against the CPU (the launch counts by shape show the wide paths ran), a
+   cold f64 Laplace E-step at xdim 5, T = 400 (D = 2000) on 4 trials of the
+   synthetic generator against the CPU, and one f64 Laplace EM iteration of
+   the surrogate at xdim 10 (D = 1400; the (C, d) M-step's contraction form).
+8. f32: the f32 fast mode. A one-iteration warm-up, then 3 timed f32 EM
+   iterations of all 100 trials with each E-step (Laplace; dual-Newton VI),
+   same data and init as the slice and vi phases: ``chol32`` launched at
+   (100, 700, 700), ``ns_step`` never; nPLL, bound and tau within the f32
+   envelope of the f64 fits of those phases, nPLL and bound rising; one
+   warm f32 iteration of each timed by phase, twice.
 
 The last three lines of standard output are one JSON object with the
 kernels' numbers, the ``nvidia-smi`` name and power limit, and
@@ -97,6 +113,29 @@ DUAL_COST_TOL = 1e-10
 DUAL_EVAL_TOL = 1e-6
 # variational EM is monotone up to the dual solver's tolerance
 VLB_MONOTONE_TOL = 1e-6
+# The f32 fits against the f64 ones, iteration by iteration: twice the JAX
+# package's own f32-against-f64 difference on the same workload and
+# iterations, the larger of its two E-steps, rounded up. jax_f32_envelope.py
+# (the first 10 trials: 100 are too slow for a CPU; nPLL and bound are means
+# over trials) measured max |f32 - f64| over 3 iterations of nPLL 4.04e-2
+# (Laplace) and 1.074e-1 (dual-Newton VI), bound 4.88e-1 (VI), tau 2.27e-3 s
+# (Laplace) and 4.77e-3 s (VI).
+F32_PLL_ENV = 0.22
+F32_VLB_ENV = 1.0
+F32_TAU_ENV = 1e-2
+# f32 EM is monotone to its resolution (tests/test_f32_mode.py)
+F32_MONOTONE = 1e-3
+# Wide paths on the card against the CPU. blocks_inv: 1e-9 relative, as the
+# card test at T = 1000 (tau 0.03 and 0.04 s at 10 ms bins keep kappa(K)
+# <= 1e4, so two f64 steps leave ~(kappa eps32)^4). The T = 400 Laplace
+# E-step: post_loglik to 1e-9 relative (the card-against-CPU fit test's) and
+# the modes to 1e-8 of their largest entry. Both sides take the same
+# f64-refined Newton directions to a decrement below 1e-12, so only the
+# rounding of two f32 factors of each Hessian, damped by the refinement,
+# separates them.
+WIDE_INV_TOL = 1e-9
+WIDE_PLL_TOL = 1e-9
+WIDE_MODE_TOL = 1e-8
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -145,6 +184,19 @@ def ns_step_bound(B, D):
     return bound_ms(4 * B * D**3, 4 * 3 * B * D * D)
 
 
+def timed(rows, name, B, D, err, kernel, plain, library, bound):
+    """Time a kernel, its plain version and the library call (CUDA events);
+    record the row under ``(name, B, D)``."""
+    ms, plain_ms, library_ms = median_ms(kernel), median_ms(plain), median_ms(library)
+    b_ms, b_by = bound
+    log(f"{name} ({B}, {D}, {D}): max|kernel - plain| = {err:.3e}; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {b_ms:.5f} ms "
+        f"({b_by}; kernel at {100 * b_ms / ms:.1f}% of it)")
+    rows[(name, B, D)] = {"shape": f"({B}, {D}, {D})", "max_abs_err": err, "ms": ms,
+                          "plain_ms": plain_ms, "library_ms": library_ms,
+                          "bound_ms": b_ms, "bound_by": b_by}
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device")
@@ -179,16 +231,6 @@ def phase_kernels():
 
     rows = {}
 
-    def timed(name, B, D, err, kernel, plain, library, bound):
-        ms, plain_ms, library_ms = median_ms(kernel), median_ms(plain), median_ms(library)
-        b_ms, b_by = bound
-        log(f"{name} ({B}, {D}, {D}): max|kernel - plain| = {err:.3e}; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {b_ms:.5f} ms "
-            f"({b_by}; kernel at {100 * b_ms / ms:.1f}% of it)")
-        rows[(name, B, D)] = {"shape": f"({B}, {D}, {D})", "max_abs_err": err, "ms": ms,
-                              "plain_ms": plain_ms, "library_ms": library_ms,
-                              "bound_ms": b_ms, "bound_by": b_by}
-
     # chol32: the Laplace Hessian (100, 700, 700), the prior and tau-derivative
     # blocks (5, 140, 140), the tau M-step's two candidates per latent
     # (10, 140, 140), the per-neuron M-step systems (90, 6, 6), and a D that
@@ -202,7 +244,7 @@ def phase_kernels():
         log(f"chol32 ({B}, {D}, {D}): allclose to plain at rtol=atol={KERNEL_TOL}: {ok}")
         if not ok:
             raise RuntimeError(f"chol32 disagrees with its plain version at ({B}, {D}, {D}): {err:.3e}")
-        timed("chol32", B, D, err, lambda: chol32(A), lambda: chol32_plain(A),
+        timed(rows, "chol32", B, D, err, lambda: chol32(A), lambda: chol32_plain(A),
               lambda: torch.linalg.cholesky_ex(A), chol32_bound(B, D))
 
     bad = torch.tensor([[1.0, 2.0, 0.0], [2.0, 1.0, 0.0], [0.0, 0.0, 1.0]], device="cuda")
@@ -234,7 +276,7 @@ def phase_kernels():
         if D == 1792:
             continue
         # 2 X - X (H X) as two cuBLAS SGEMMs (TF32 off)
-        timed("ns_step", B, D, err, lambda: ns_step(H, X), lambda: ns_step_plain(H, X),
+        timed(rows, "ns_step", B, D, err, lambda: ns_step(H, X), lambda: ns_step_plain(H, X),
               lambda: torch.baddbmm(X, X, torch.bmm(H, X), beta=2.0, alpha=-1.0),
               ns_step_bound(B, D))
         Hoff, Xoff = (torch.empty(t.numel() + 1, device="cuda")[1:].view_as(t).copy_(t)
@@ -370,18 +412,15 @@ def phase_slice():
         f"({int(inf.newton_iters.max())} Newton bodies), (C, d) M-step {t2 - t1:.3f} s, "
         f"tau M-step {t3 - t2:.3f} s")
     check_backward_error("Hessians at the fitted modes", p, inf.post_mean, ds)
-    return launches
+    return launches, res, wall / n_iter
 
 
 def phase_vi():
     from pgpfa_torch import FitConfig, fit, initialize_params, stevenson_surrogate
     from pgpfa_torch.convert import params_from_numpy
     from pgpfa_torch.infer import variational as V
-    from pgpfa_torch.learn.mstep_gp import learn_tau
-    from pgpfa_torch.learn.mstep_obs import learn_cd
     from pgpfa_torch.models.params import rbf_kernel
-    from pgpfa_torch.models.poisson_gpfa import neg_log_posterior
-    from pgpfa_torch.ops.blockmat import blocks_inv, cov_views
+    from pgpfa_torch.ops.blockmat import blocks_inv
     from pgpfa_torch.ops.cuda_kernels import chol32, ns_step
 
     ref = json.loads((REPO / "BASELINE_MEASURED_VI_STEVENSON.json").read_text())
@@ -459,10 +498,27 @@ def phase_vi():
     if not np.all(np.diff(vlb) >= -VLB_MONOTONE_TOL * np.abs(vlb[1:])):
         raise RuntimeError(f"vi fit: the bound fell: {vlb.tolist()}")
 
-    # (d) one warm iteration at the fitted parameters, warm-started from the
-    # dual solved at the parameters one M-step earlier
-    c = cfg("newton", 1)
-    Y = torch.as_tensor(ds.Y, device="cuda")
+    # (d) one warm iteration at the fitted parameters
+    vi_phase_split("vi", res, ds)
+    return launches, res, wall / n_iter
+
+
+def vi_phase_split(label, res, ds):
+    """One warm dual-Newton EM iteration at a fit's final parameters, warm-
+    started from the dual solved at the parameters one M-step earlier, timed
+    by phase."""
+    from pgpfa_torch import FitConfig
+    from pgpfa_torch.infer import variational as V
+    from pgpfa_torch.learn.mstep_gp import learn_tau
+    from pgpfa_torch.learn.mstep_obs import learn_cd
+    from pgpfa_torch.models.params import rbf_kernel
+    from pgpfa_torch.models.poisson_gpfa import neg_log_posterior
+    from pgpfa_torch.ops.blockmat import blocks_inv, cov_views
+    from pgpfa_torch.ops.cuda_kernels import chol32, ns_step
+
+    T, bin_ms = ds.T, float(ds.binSize)
+    c = FitConfig(inference_method="variational", vi_solver="newton", max_em_iter=1)
+    Y = torch.as_tensor(ds.Y, dtype=res.C.dtype, device="cuda")
     C1, d1, tau1 = res.C_seq[-2], res.d_seq[-2], res.tau_seq[-2]
     K1 = rbf_kernel(tau1, T, bin_ms)
     rho1, _ = V._solve_dual(C1, d1, K1, blocks_inv(K1), Y, torch.zeros_like(Y), c.vi_maxiter,
@@ -492,20 +548,244 @@ def phase_vi():
     torch.cuda.synchronize()
     t.append(time.time())
     dt = np.diff(t)
-    log(f"vi phase split (one warm iteration, {float(t[-1] - t[0]):.3f} s): dual solve "
+    log(f"{label} phase split (one warm iteration, {float(t[-1] - t[0]):.3f} s): dual solve "
         f"{dt[0]:.3f} s ({n_eval} _dual_evals in {-(-n_eval // V.NEWTON_CHUNK)} chunks of "
         f"{V.NEWTON_CHUNK}), covariance {dt[1]:.3f} s, neg_log_posterior {dt[2]:.4f} s, "
         f"(C, d) M-step {dt[3]:.3f} s, tau M-step {dt[4]:.3f} s")
+
+
+def reset_counts():
+    from pgpfa_torch.ops.cuda_kernels import chol32, ns_step
+
+    for k in (chol32, ns_step):
+        k.launches = 0
+        k.launches_by_shape.clear()
+
+
+def read_counts():
+    from pgpfa_torch.ops.cuda_kernels import chol32, ns_step
+
+    torch.cuda.synchronize()
+    return {"chol32": chol32.launches, "ns_step": ns_step.launches}
+
+
+def phase_wide(rows):
+    """The kernels' wide paths: each against its plain version at widths
+    past its switch, timed at one shape each, then driven through
+    ``blocks_inv``, a Laplace E-step and an EM iteration past the old limits.
+    Adds the timing rows to ``rows``; returns the launches of the path."""
+    from pgpfa_torch import FitConfig, dataset, fit, initialize_params, stevenson_surrogate
+    from pgpfa_torch.convert import params_from_numpy
+    from pgpfa_torch.infer.laplace import laplace_estep_from_arrays
+    from pgpfa_torch.models.params import rbf_kernel
+    from pgpfa_torch.ops.blockmat import blocks_inv
+    from pgpfa_torch.ops.cuda_kernels import (CHOL32_SWITCH_D, NS_STEP_SWITCH_D, chol32,
+                                              chol32_plain, ns_step, ns_step_plain)
+
+    log(f"wide: chol32 switch width {CHOL32_SWITCH_D}, ns_step switch width {NS_STEP_SWITCH_D}")
+    for B, D in [(2, 1793), (2, 2100), (1, 4096), (2, 8192)]:
+        A = spd(B, D, 0.5, seed=B * 1000 + D)
+        before = A.clone()
+        L = chol32(A)
+        Lp = chol32_plain(A)
+        torch.cuda.synchronize()
+        err = float((L - Lp).abs().max())
+        ok = (bool(torch.allclose(L, Lp, rtol=KERNEL_TOL, atol=KERNEL_TOL))
+              and torch.equal(L, L.tril()) and torch.equal(A, before))
+        log(f"chol32 ({B}, {D}, {D}), wide path: max|kernel - plain| = {err:.3e}; allclose at "
+            f"rtol=atol={KERNEL_TOL}, upper zeros, input untouched: {ok}")
+        if not ok:
+            raise RuntimeError(f"chol32's wide path disagrees at ({B}, {D}, {D}): {err:.3e}")
+        del A, before, L, Lp
+    A = spd(2, 2100, 0.5, seed=2100)
+    A[0, 1000, 1000] = -1.0
+    Lbad = chol32(A)
+    lower = torch.ones(2100, 2100, dtype=torch.bool, device="cuda").tril()
+    if not (torch.isnan(Lbad[0][lower]).all() and (Lbad[0][~lower] == 0).all()
+            and torch.equal(Lbad[1], chol32(A[1:].contiguous())[0])):
+        raise RuntimeError("chol32's wide path: non-PD semantics broken")
+    log("chol32 (2, 2100, 2100) wide path, pivot 1000 of matrix 0 negative: NaN lower "
+        "triangle, zeros above; matrix 1 exactly its factor alone")
+    for B, D in [(1, 4769), (2, 6000)]:
+        H = spd(B, D, 1.0, seed=D + 1)
+        X = (0.9 * torch.cholesky_inverse(torch.linalg.cholesky(H.double()))).float().contiguous()
+        out, want = ns_step(H, X), ns_step_plain(H, X)
+        torch.cuda.synchronize()
+        err, scale = float((out - want).abs().max()), float(want.abs().max())
+        log(f"ns_step ({B}, {D}, {D}), wide path: max|kernel - plain| = {err:.3e} "
+            f"(<= {KERNEL_TOL} x max|X'| = {KERNEL_TOL * scale:.3e})")
+        if not err <= KERNEL_TOL * scale:
+            raise RuntimeError(f"ns_step's wide path disagrees at ({B}, {D}, {D})")
+        if D == 6000:
+            timed(rows, "ns_step", B, D, err, lambda: ns_step(H, X), lambda: ns_step_plain(H, X),
+                  lambda: torch.baddbmm(X, X, torch.bmm(H, X), beta=2.0, alpha=-1.0),
+                  ns_step_bound(B, D))
+        del H, X, out, want
+    A = spd(4, 2048, 0.5, seed=4 * 1000 + 2048)
+    L, Lp = chol32(A), chol32_plain(A)
+    torch.cuda.synchronize()
+    err = float((L - Lp).abs().max())
+    if not bool(torch.allclose(L, Lp, rtol=KERNEL_TOL, atol=KERNEL_TOL)):
+        raise RuntimeError(f"chol32's wide path disagrees at (4, 2048, 2048): {err:.3e}")
+    timed(rows, "chol32", 4, 2048, err, lambda: chol32(A), lambda: chol32_plain(A),
+          lambda: torch.linalg.cholesky_ex(A), chol32_bound(4, 2048))
+    del A, L, Lp
+
+    # the path: blocks_inv, a Laplace E-step and an EM iteration past the old limits
+    reset_counts()
+    for T in (1800, 4800):
+        K = rbf_kernel(torch.tensor([0.03, 0.04], dtype=torch.float64), T, 10.0)
+        got = blocks_inv(K.cuda())
+        torch.cuda.synchronize()
+        shape = {k.__name__: k.launches_by_shape[(2, T)] for k in (chol32, ns_step)}
+        err = float((got.cpu() - blocks_inv(K)).abs().max() / got.abs().max())
+        log(f"wide: blocks_inv (2, {T}, {T}) card vs CPU: {err:.3e} relative (tolerance "
+            f"{WIDE_INV_TOL:.0e}); launches at (2, {T}): {shape}; wide paths: chol32 "
+            f"{T > CHOL32_SWITCH_D}, ns_step {T > NS_STEP_SWITCH_D}")
+        if not (err <= WIDE_INV_TOL and shape == {"chol32": 1, "ns_step": 2}):
+            raise RuntimeError(f"blocks_inv at T = {T} on the card")
+        del K, got
+
+    ds = dataset(xdim=5, ydim=90, numTrials=4, trialDur=4000, binSize=10, dOffset=-1.3,
+                 fixTau=True, fixedTau=np.linspace(0.05, 0.5, 5), seed=0)
+    init = initialize_params(5, ds.ydim, ds, seed=0)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = params_from_numpy(init, dev)
+        t0 = time.time()
+        runs[dev] = laplace_estep_from_arrays(p.C, p.d, p.tau, torch.as_tensor(ds.Y, device=dev),
+                                              ds.T, float(ds.binSize), compute_cov=False)
+        torch.cuda.synchronize()
+        runs[dev + "_s"] = time.time() - t0
+    (inf_g, pll_g), (inf_c, pll_c) = runs["cuda"], runs["cpu"]
+    d_pll = abs(float(pll_g) - float(pll_c)) / abs(float(pll_c))
+    d_mode = float((inf_g.post_mean.cpu() - inf_c.post_mean).abs().max()
+                   / inf_c.post_mean.abs().max())
+    n_wide = chol32.launches_by_shape[(4, 5 * ds.T)]
+    log(f"wide: cold Laplace E-step, xdim 5, T {ds.T} (D = {5 * ds.T}), {ds.numTrials} trials: "
+        f"post_loglik card {float(pll_g)!r} vs CPU {float(pll_c)!r} ({d_pll:.3e} relative, "
+        f"tolerance {WIDE_PLL_TOL:.0e}); modes {d_mode:.3e} of their largest entry (tolerance "
+        f"{WIDE_MODE_TOL:.0e}); Newton iterations {inf_g.newton_iters.tolist()} card, "
+        f"{inf_c.newton_iters.tolist()} CPU; chol32 at (4, {5 * ds.T}): {n_wide} launches; "
+        f"{runs['cuda_s']:.3f} s card, {runs['cpu_s']:.3f} s CPU")
+    if not (d_pll <= WIDE_PLL_TOL and d_mode <= WIDE_MODE_TOL and n_wide > 0):
+        raise RuntimeError("the T = 400 Laplace E-step on the card disagrees with the CPU")
+
+    ds = stevenson_surrogate(xdim=10, seed=2011)
+    init = initialize_params(10, ds.ydim, ds, seed=0)
+    t0 = time.time()
+    res = fit(init, ds.Y, ds.binSize, FitConfig(max_em_iter=1), device="cuda")
+    torch.cuda.synchronize()
+    pll = float(res.post_loglik[0])
+    log(f"wide: one f64 Laplace EM iteration at xdim 10 (D = {10 * ds.T}), Y {ds.Y.shape}: "
+        f"nPLL {pll!r}, tau {res.tau.tolist()}, cd_niter {int(res.cd_niter[0])}; "
+        f"{time.time() - t0:.3f} s")
+    if not (np.isfinite(pll) and bool(torch.isfinite(res.C).all() and torch.isfinite(res.tau).all())):
+        raise RuntimeError("the xdim-10 EM iteration is not finite")
+    launches = read_counts()
+    log(f"wide: launches of the path (blocks_inv, E-step, xdim-10 iteration): {launches}")
+    if not all(v > 0 for v in launches.values()):
+        raise RuntimeError(f"a kernel was not launched on the wide path: {launches}")
     return launches
+
+
+def laplace_phase_split(label, res, ds):
+    """One warm Laplace EM iteration at a fit's final parameters, its E-step
+    warm-started from the modes at the parameters one M-step earlier, timed
+    by phase."""
+    from pgpfa_torch.infer.laplace import laplace_estep_from_arrays
+    from pgpfa_torch.learn.mstep_gp import learn_tau
+    from pgpfa_torch.learn.mstep_obs import learn_cd
+
+    T, bin_ms = ds.T, float(ds.binSize)
+    Y = torch.as_tensor(ds.Y, dtype=res.C.dtype, device="cuda")
+    prev, _ = laplace_estep_from_arrays(res.C_seq[-2], res.d_seq[-2], res.tau_seq[-2], Y, T,
+                                        bin_ms, compute_cov=False)
+    C, d, tau = res.C, res.d, res.tau
+    torch.cuda.synchronize()
+    t = [time.time()]
+    inf, _ = laplace_estep_from_arrays(C, d, tau, Y, T, bin_ms, x_init=prev.post_mean,
+                                       compute_cov=False)
+    torch.cuda.synchronize()
+    t.append(time.time())
+    learn_cd(Y, inf.post_mean, inf.post_vsm, C, d, maxiter=8)
+    torch.cuda.synchronize()
+    t.append(time.time())
+    learn_tau(inf.post_mean, inf.post_vsm_gp, tau, bin_ms, maxiter=6)
+    torch.cuda.synchronize()
+    t.append(time.time())
+    dt = np.diff(t)
+    log(f"{label} phase split (one warm iteration, {float(t[-1] - t[0]):.3f} s): E-step "
+        f"{dt[0]:.3f} s ({int(inf.newton_iters.max())} Newton bodies), (C, d) M-step "
+        f"{dt[1]:.3f} s, tau M-step {dt[2]:.3f} s")
+
+
+def phase_f32(slice64, vi64):
+    """The f32 fast mode of both E-steps at full width, held to the f64 fits
+    ``(res, s/EM-iteration)`` of the slice and vi phases; returns the
+    launches of the two f32 fits."""
+    from pgpfa_torch import FitConfig, fit, initialize_params, stevenson_surrogate
+    from pgpfa_torch.ops.cuda_kernels import chol32
+
+    oracle = json.loads((REPO / "ORACLE_TRAJ_STEVENSON.json").read_text())
+    ds = stevenson_surrogate(xdim=5, seed=2011)
+    init = initialize_params(5, ds.ydim, ds, seed=0)
+    n_iter, full = 3, (ds.numTrials, 5 * ds.T)
+    total = {"chol32": 0, "ns_step": 0}
+    for method, (res64, s64) in (("laplace", slice64), ("variational", vi64)):
+        kw = dict(inference_method=method, vi_solver="newton")
+        fit(init, ds.Y, ds.binSize, FitConfig(max_em_iter=1, **kw), device="cuda",
+            dtype=torch.float32)  # warm-up
+        reset_counts()
+        t0 = time.time()
+        res = fit(init, ds.Y, ds.binSize, FitConfig(max_em_iter=n_iter, **kw), device="cuda",
+                  dtype=torch.float32)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = read_counts()
+        n_full = chol32.launches_by_shape[full]
+        for k in total:
+            total[k] += launches[k]
+        pll, pll64 = res.post_loglik.cpu().numpy(), res64.post_loglik.cpu().numpy()
+        vlb, vlb64 = res.var_lower_bound.cpu().numpy(), res64.var_lower_bound.cpu().numpy()
+        tau, tau64 = res.tau_seq.cpu().numpy(), res64.tau_seq.cpu().numpy()
+        d_pll, d_vlb = np.abs(pll - pll64).max(), np.abs(vlb - vlb64).max()
+        d_tau = float(np.abs(tau - tau64).max())
+        log(f"f32 {method} fit: Y {ds.Y.shape}, dtype {res.C.dtype}, launches {launches}, "
+            f"chol32 at {full}: {n_full}")
+        log(f"f32 {method} fit: post_loglik {pll.tolist()} (f64 {pll64.tolist()}); "
+            f"var_lower_bound {vlb.tolist()}; tau {tau[-1].tolist()}")
+        log(f"f32 {method} fit: max|f32 - f64| nPLL {d_pll:.4e} (envelope {F32_PLL_ENV:.1e}), "
+            f"bound {d_vlb:.4e} (envelope {F32_VLB_ENV:.1e}), tau {d_tau:.4e} s (envelope "
+            f"{F32_TAU_ENV:.1e}); iteration-1 nPLL - oracle {pll[0] - oracle['post_loglik'][0]:.4e}")
+        log(f"f32 {method} fit: {wall:.3f} s for {n_iter} EM iterations = {wall / n_iter:.3f} "
+            f"s/EM-iteration (f64 in this call: {s64:.3f})")
+        if not (n_full > 0 and launches["ns_step"] == 0 and res.C.dtype == torch.float32):
+            raise RuntimeError(f"f32 {method} fit: chol32 must launch at {full} and ns_step never")
+        if not (np.all(np.isfinite(pll)) and np.all(np.isfinite(vlb)) and np.all(np.isfinite(tau))):
+            raise RuntimeError(f"f32 {method} fit: values not finite")
+        if not (d_pll <= F32_PLL_ENV and d_vlb <= F32_VLB_ENV and d_tau <= F32_TAU_ENV):
+            raise RuntimeError(f"f32 {method} fit outside the f32 envelope of the f64 fit")
+        if not (np.all(np.diff(pll) > -F32_MONOTONE) and np.all(np.diff(vlb) > -F32_MONOTONE)):
+            raise RuntimeError(f"f32 {method} fit: nPLL or bound fell")
+        # twice: the host-timed split of one iteration varies between runs
+        for run in (1, 2):
+            if method == "laplace":
+                laplace_phase_split(f"f32 laplace (run {run})", res, ds)
+            else:
+                vi_phase_split(f"f32 vi (run {run})", res, ds)
+    return total
 
 
 def main():
     smi = phase_device()
     phase_build()
     rows = phase_kernels()
+    launches_wide = phase_wide(rows)
     phase_hessian()
-    launches = phase_slice()
-    launches_vi = phase_vi()
+    launches, *slice64 = phase_slice()
+    launches_vi, *vi64 = phase_vi()
+    launches_f32 = phase_f32(slice64, vi64)
 
     kernels = []
     for name, src, replaces, (B, D) in [
@@ -514,6 +794,7 @@ def main():
     ]:
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches[name], "launches_vi": launches_vi[name],
+                        "launches_wide": launches_wide[name], "launches_f32": launches_f32[name],
                         **rows[(name, B, D)],
                         "shapes": [r for (n, _, _), r in rows.items() if n == name]})
     print(json.dumps({"kernels": kernels}))

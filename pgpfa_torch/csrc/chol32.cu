@@ -1,5 +1,5 @@
 // Batched lower Cholesky factorization of f32 SPD matrices:
-//     L = chol(A),   A, L: (B, D, D), row-major, contiguous, 1 <= D <= 1792
+//     L = chol(A),   A, L: (B, D, D), row-major, contiguous, any D >= 1
 //
 // Replaces: scripts/exp_pallas_chol.py:_chol_kernel / pallas_chol (the TPU
 // probe padded D to a multiple of 128 with an identity block, factored
@@ -50,6 +50,22 @@
 //      hides behind the loop. 64-wide panels halve the read-modify-write
 //      passes over L22 (11 at D = 700) against 32-wide ones.
 //   The first panel reads A directly, so A is never copied into L first.
+//
+//   The wide path (D > 1792, where even a 32-wide tall panel does not fit
+//   shared memory): 64-wide panels whose rows below the diagonal block are
+//   taken in chunks of CH rows (416 on the H100). Shared memory holds the
+//   diagonal block and two chunk slots, I and J. For each chunk I of the
+//   panel: stage it in slot I (chunk 0 together with the diagonal block,
+//   which is factored first), row-solve and sub-panel-update it as above,
+//   write it to L; then update the trailing blocks of its rows, L22[I, J]
+//   -= L21[I] L21[J]^T, for each earlier chunk J restaged from L (its rows
+//   were written there by the same block, behind a barrier) into slot J,
+//   and last the triangle L22[I, I] from slot I alone. Same helpers, same
+//   sums in the same order per entry; the narrow path is the case of one
+//   chunk that covers the whole panel. One block per matrix, so a small
+//   batch leaves most SMs idle: 13.4 ms at (4, 2048, 2048), 2.8x cuSOLVER's
+//   time (H100, chip_smoke.py).
+//
 //   The serial parts (diagonal factors, row solves) are not inlined: each
 //   unrolled body runs a few times per panel, and inlined copies of them
 //   did not stay in the instruction cache.
@@ -76,9 +92,18 @@ __host__ __device__ inline int panel_rows(int H, int nbw) {
   return nbw + WT * ((n2 + WT - 1) / WT);
 }
 
-// Dynamic shared memory of a launch: the panel (nbw x ldp) and NB pivots.
+// Dynamic shared memory of a narrow launch: the panel (nbw x ldp) and NB
+// pivots.
 inline size_t smem_bytes(int D, int nbw) {
   return sizeof(float) * ((size_t)nbw * (panel_rows(D, nbw) + 4) + NB);
+}
+
+// The wide path's chunk rows under a shared-memory limit: the largest
+// multiple of WT with NB x (NB + 2 CH + 4) floats and NB pivots inside it.
+// Its Python mirror is chol32_smem_bytes in ops/cuda_kernels.py.
+inline int wide_chunk_rows(int limit) {
+  const int ldp = (limit / (int)sizeof(float) - NB) / NB;
+  return (ldp - NB - 4) / 2 / WT * WT;
 }
 
 // Factor the 32 x 32 diagonal block at (cb, cb) of the staged panel in one
@@ -167,12 +192,14 @@ __device__ __noinline__ void subpanel_update(float* P, int ldp, int r) {
 
 // One 32 x 32 warp tile (ti, tj), tj <= ti, of the trailing update
 // L22 -= L21 L21^T. C22 is read from src (A for the first panel, L after)
-// at (row, col) offset base and written to dst = L. VEC: rows are 16-byte
-// aligned (D % 4 == 0), so a lane's 4 columns move as one float4.
+// at (row, col) offset base and written to dst = L. Row i of L21 is staged
+// at P row pio + i for the tile's rows and pjo + i for its columns. VEC:
+// rows are 16-byte aligned (D % 4 == 0), so a lane's 4 columns move as one
+// float4.
 template <bool VEC>
-__device__ __forceinline__ void update_tile(const float* P, int ldp, const float* src,
-                                            float* dst, size_t base, int D, int n2, int nbw,
-                                            int ti, int tj, int lane) {
+__device__ __forceinline__ void update_tile(const float* P, int ldp, int pio, int pjo,
+                                            const float* src, float* dst, size_t base, int D,
+                                            int n2, int nbw, int ti, int tj, int lane) {
   const int i0 = ti * WT + (lane >> 3) * 8;
   const int j0 = tj * WT + (lane & 7) * 4;
   float c[8][4];
@@ -197,8 +224,8 @@ __device__ __forceinline__ void update_tile(const float* P, int ldp, const float
   for (int m = 0; m < 8; ++m)
 #pragma unroll
     for (int q = 0; q < 4; ++q) acc[m][q] = 0.f;
-  const float* pi = P + nbw + i0;  // pi[k * ldp + m] = L21[i0 + m][k]
-  const float* pj = P + nbw + j0;
+  const float* pi = P + (pio + i0);  // pi[k * ldp + m] = L21[i0 + m][k]
+  const float* pj = P + (pjo + j0);
   for (int kb = 0; kb < nbw; kb += SB) {
 #pragma unroll 4
     for (int k = kb; k < kb + SB; ++k) {
@@ -238,9 +265,62 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                : "memory");
 }
 
+// Stage panel rows [g0, g0 + rows) (rows a multiple of 4) of the panel at
+// column k0 into P rows [p0, p0 + rows) by asynchronous copies, all in flight
+// at once: a warp moves 8 columns x 4 rows (4 x 32 B from src, and 32
+// distinct banks in P since ldp = 4 mod 32). Entries outside the panel's
+// lower triangle are those of an identity block, so no loop below carries a
+// predicate. Waits for the thread's own copies; the caller then syncs.
+__device__ __forceinline__ void stage(float* P, int ldp, int p0, const float* src, int D, int k0,
+                                      int H, int nb, int nbw, int g0, int rows, int tid) {
+  const int gsh = nbw == NB ? 3 : 2;  // the 8-column groups of a panel: nbw = 8 << gsh
+  for (int e = tid; e < rows * nbw; e += NT) {
+    const int blk = e >> 5;
+    const int k = (blk & ((1 << gsh) - 1)) * 8 + (e & 7), r = (blk >> gsh) * 4 + ((e >> 3) & 3);
+    const int g = g0 + r;
+    float* dst = P + k * ldp + p0 + r;
+    if (g < H && k < nb && k <= g) cp_async4(dst, src + (size_t)(k0 + g) * D + k0 + k);
+    else *dst = g == k ? 1.f : 0.f;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Write P rows [p0, p0 + rows), panel rows [g0, g0 + rows), back to L.
+__device__ __forceinline__ void write_back(const float* P, int ldp, int p0, float* Lb, int D,
+                                           int k0, int H, int nb, int nbw, int g0, int rows,
+                                           int tid) {
+  const int gsh = nbw == NB ? 3 : 2;
+  for (int e = tid; e < rows * nbw; e += NT) {
+    const int blk = e >> 5;
+    const int k = (blk & ((1 << gsh) - 1)) * 8 + (e & 7), r = (blk >> gsh) * 4 + ((e >> 3) & 3);
+    const int g = g0 + r;
+    if (g < H && k < nb) Lb[(size_t)(k0 + g) * D + k0 + k] = P[k * ldp + p0 + r];
+  }
+}
+
+// The wide path's block L22[I, J] -= L21[I] L21[J]^T, J < I: chunk J's rows
+// of L21 restaged from L into slot J, then its nti x CH / WT warp tiles.
+template <bool VEC>
+__device__ __noinline__ void update_from_chunk(float* P, int ldp, int CH, int I, int J, int nti,
+                                               const float* src, float* Lb, size_t base, int D,
+                                               int k0, int H, int nb, int n2, int nbw) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, TC = CH / WT;
+  __syncthreads();  // chunk J's rows of L visible, slot J free
+  stage(P, ldp, nbw + CH, Lb, D, k0, H, nb, nbw, nbw + J * CH, CH, tid);
+  __syncthreads();
+  for (int t = warp; t < nti * TC; t += NWARP)
+    update_tile<VEC>(P, ldp, nbw - I * CH, nbw + CH - J * CH, src, Lb, base, D, n2, nbw,
+                     I * TC + t / TC, J * TC + t % TC, lane);
+}
+
+// ldp: the stride of P (= 4 mod 32); nbw: the panel width; CH: the rows of a
+// chunk (a multiple of WT). P holds the diagonal block in rows [0, nbw),
+// chunk slot I in [nbw, nbw + CH) and, on the wide path, slot J in
+// [nbw + CH, nbw + 2 CH). The narrow path has CH >= D - nbw: one chunk.
 template <bool VEC>
 __global__ void __launch_bounds__(NT, 1)
-chol32_kernel(const float* __restrict__ A, float* __restrict__ L, int D, int ldp, int nbw) {
+chol32_kernel(const float* __restrict__ A, float* __restrict__ L, int D, int ldp, int nbw,
+              int CH) {
   extern __shared__ float4 smem4[];
   float* P = reinterpret_cast<float*>(smem4);  // nbw x ldp staged panel
   float* invd = P + nbw * ldp;                 // 1 / L[k0 + k][k0 + k]
@@ -251,60 +331,67 @@ chol32_kernel(const float* __restrict__ A, float* __restrict__ L, int D, int ldp
   float* Lb = L + off;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (tid == 0) failed = 0;
-  // the 8-column groups of a panel: nbw = 8 << gsh
-  const int gsh = nbw == NB ? 3 : 2;
+  const int TC = CH / WT;  // warp tiles per chunk
 
   for (int k0 = 0; k0 < D; k0 += nbw) {
     const int H = D - k0;          // panel height
     const int nb = min(nbw, H);    // panel width (ragged only for the last one)
     const int n2 = H - nb;         // trailing size
-    const int rows = panel_rows(H, nbw);
     const float* src = k0 == 0 ? Ab : Lb;
-
-    // 1. stage by asynchronous copies, all in flight at once: a warp moves
-    //    8 columns x 4 rows (4 x 32 B from L, and 32 distinct banks in P
-    //    since ldp = 4 mod 32)
-    for (int e = tid; e < rows * nbw; e += NT) {
-      const int blk = e >> 5;
-      const int k = (blk & ((1 << gsh) - 1)) * 8 + (e & 7), r = (blk >> gsh) * 4 + ((e >> 3) & 3);
-      if (r < H && k < nb && k <= r) cp_async4(P + k * ldp + r, src + (size_t)(k0 + r) * D + k0 + k);
-      else P[k * ldp + r] = r == k ? 1.f : 0.f;
-    }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    __syncthreads();
-
-    // 2. the two 32-wide sub-panels
-    if (warp == 0) diag_factor(P, ldp, 0, invd, &failed, lane);
-    __syncthreads();
-    for (int r = SB + tid; r < H; r += NT) row_solve(P, ldp, 0, invd, r);
-    __syncthreads();
-    if (nb > SB) {  // uniform over the block
-      for (int r = SB + tid; r < H; r += NT) subpanel_update(P, ldp, r);
-      __syncthreads();
-      if (warp == 0) diag_factor(P, ldp, SB, invd, &failed, lane);
-      __syncthreads();
-      for (int r = 2 * SB + tid; r < H; r += NT) row_solve(P, ldp, SB, invd, r);
-      __syncthreads();
-    }
-
-    // 3. write the panel back, zero the columns above it, update L22
-    for (int e = tid; e < rows * nbw; e += NT) {
-      const int blk = e >> 5;
-      const int k = (blk & ((1 << gsh) - 1)) * 8 + (e & 7), r = (blk >> gsh) * 4 + ((e >> 3) & 3);
-      if (r < H && k < nb) Lb[(size_t)(k0 + r) * D + k0 + k] = P[k * ldp + r];
-    }
-    for (int e = tid; e < k0 * nb; e += NT) Lb[(size_t)(e / nb) * D + k0 + e % nb] = 0.f;
-
-    const int nt = (n2 + WT - 1) / WT;
-    const int ntiles = nt * (nt + 1) / 2;
     const size_t base = (size_t)(k0 + nbw) * D + k0 + nbw;
-    for (int t = warp; t < ntiles; t += NWARP) {
-      int ti = (int)((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
-      while (ti * (ti + 1) / 2 > t) --ti;
-      while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
-      update_tile<VEC>(P, ldp, src, Lb, base, D, n2, nbw, ti, t - ti * (ti + 1) / 2, lane);
+    const int nch = n2 > CH ? (n2 + CH - 1) / CH : 1;
+
+    for (int I = 0; I < nch; ++I) {
+      // P row r holds panel row r + c0: chunk 0 comes with the diagonal block
+      const int c0 = I * CH;                // the chunk's first trailing row
+      const int nI = min(CH, n2 - c0);      // its rows (0 in the last panel)
+      const int p0 = I == 0 ? 0 : nbw;
+      const int rows = nbw - p0 + WT * ((nI + WT - 1) / WT);
+      const int rend = min(H - c0, nbw + CH);
+
+      // 1. stage
+      stage(P, ldp, p0, src, D, k0, H, nb, nbw, p0 + c0, rows, tid);
+      __syncthreads();
+
+      // 2. the two 32-wide sub-panels (the diagonal block's with chunk 0)
+      const int rbeg = I == 0 ? SB : nbw;
+      if (I == 0) {
+        if (warp == 0) diag_factor(P, ldp, 0, invd, &failed, lane);
+        __syncthreads();
+      }
+      for (int r = rbeg + tid; r < rend; r += NT) row_solve(P, ldp, 0, invd, r);
+      __syncthreads();
+      if (nb > SB) {  // uniform over the block
+        for (int r = rbeg + tid; r < rend; r += NT) subpanel_update(P, ldp, r);
+        __syncthreads();
+        if (I == 0) {
+          if (warp == 0) diag_factor(P, ldp, SB, invd, &failed, lane);
+          __syncthreads();
+        }
+        for (int r = max(rbeg, 2 * SB) + tid; r < rend; r += NT) row_solve(P, ldp, SB, invd, r);
+        __syncthreads();
+      }
+
+      // 3. write the chunk back; with chunk 0, zero the columns above the panel
+      write_back(P, ldp, p0, Lb, D, k0, H, nb, nbw, p0 + c0, rows, tid);
+      if (I == 0)
+        for (int e = tid; e < k0 * nb; e += NT) Lb[(size_t)(e / nb) * D + k0 + e % nb] = 0.f;
+
+      // 4. update the chunk's rows of L22: the blocks of each earlier chunk
+      //    J, restaged from L into slot J, then the triangle of chunk I
+      const int nti = (nI + WT - 1) / WT;
+      for (int J = 0; J < I; ++J)
+        update_from_chunk<VEC>(P, ldp, CH, I, J, nti, src, Lb, base, D, k0, H, nb, n2, nbw);
+      const int ntiles = nti * (nti + 1) / 2;
+      for (int t = warp; t < ntiles; t += NWARP) {
+        int ti = (int)((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
+        while (ti * (ti + 1) / 2 > t) --ti;
+        while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
+        update_tile<VEC>(P, ldp, nbw - c0, nbw - c0, src, Lb, base, D, n2, nbw, I * TC + ti,
+                         I * TC + t - ti * (ti + 1) / 2, lane);
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
 
   if (failed) {
@@ -318,19 +405,30 @@ chol32_kernel(const float* __restrict__ A, float* __restrict__ L, int D, int ldp
 
 template <bool VEC>
 int launch(const float* A, float* L, int B, int D, cudaStream_t stream) {
-  // the widest panel whose footprint fits the block's shared memory
+  // narrow: the widest panel whose whole height fits the block's shared
+  // memory; the wide path where none does
   int dev = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  const int nbw = smem_bytes(D, NB) <= (size_t)limit ? NB : SB;
-  const size_t smem = smem_bytes(D, nbw);
-  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  int nbw = NB, ch, ldp;
+  size_t smem;
+  if (smem_bytes(D, SB) <= (size_t)limit) {
+    nbw = smem_bytes(D, NB) <= (size_t)limit ? NB : SB;
+    ldp = panel_rows(D, nbw) + 4;
+    ch = max(WT, ldp - 4 - nbw);
+    smem = smem_bytes(D, nbw);
+  } else {
+    ch = wide_chunk_rows(limit);
+    if (ch < WT) return (int)cudaErrorInvalidValue;
+    ldp = NB + 2 * ch + 4;
+    smem = sizeof(float) * ((size_t)NB * ldp + NB);
+  }
   err = cudaFuncSetAttribute(chol32_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  chol32_kernel<VEC><<<B, NT, smem, stream>>>(A, L, D, panel_rows(D, nbw) + 4, nbw);
+  chol32_kernel<VEC><<<B, NT, smem, stream>>>(A, L, D, ldp, nbw, ch);
   return (int)cudaGetLastError();
 }
 

@@ -4,10 +4,10 @@
 // Replaces: pgpfa/ops/pallas_kernels.py:_ns_step_kernel / ns_step_fused (the
 // TPU kernel kept H and X resident in VMEM and never wrote G = H X to HBM).
 //
-// Contract: out is a fresh buffer; H and X are only read; G = H X never
-// reaches device memory; the launch returns cudaGetLastError() and never
-// synchronises. Full f32 FFMA: no TF32 (the refinement it serves needs
-// ~1e-7, and floors at ~1e-3 in TF32).
+// Contract: out is a fresh buffer; H and X are only read; G = H X stays out
+// of device memory except on the wide path below; the launch returns
+// cudaGetLastError() and never synchronises. Full f32 FFMA: no TF32 (the
+// refinement it serves needs ~1e-7, and floors at ~1e-3 in TF32).
 //
 // What bounds it on the H100: 4 D^3 flops per matrix against 3 D^2 floats
 // moved, so FFMA issue at every width the path uses: at (100, 700, 700)
@@ -28,6 +28,15 @@
 //   only its RB x 64 slice of G and a ring of load stages, so the footprint
 //   grows as D / 8, not D: D up to 4768 fits (ns_step_smem_bytes in
 //   ops/cuda_kernels.py mirrors smem_floats below).
+//
+//   The wide path (D > 4768, where a cluster's shared memory no longer holds
+//   G[:, J]): the caller passes a (B, D, D) workspace and G = H X goes
+//   through device memory after all, in two launches over a grid of
+//   128 x 64 output tiles: G = H X, then 2 X - X G, each tile by product()
+//   with the same register tiles and ring. G's write and read add 8 D^2
+//   bytes per matrix against its 4 D^3 flops: still FFMA-bound. At
+//   (2, 6000, 6000) it runs at 54% of the FP32 peak, two cuBLAS SGEMMs at
+//   78% (H100, chip_smoke.py).
 //
 //   Register tiles: 8 warps as 4 x 2 warp tiles of (4 TM) x 32; a lane holds
 //   TM x 4 accumulators (TM = 8 for D > 256, 2 up to 256, so small matrices
@@ -83,7 +92,7 @@ inline int block_rows(int D) {
 
 // Dynamic shared memory of a launch, in floats: the G slice and the ring.
 // Its Python mirror is ns_step_smem_bytes in ops/cuda_kernels.py, which sets
-// NS_STEP_MAX_D: change both together.
+// NS_STEP_SWITCH_D: change both together.
 inline size_t smem_floats(int D) {
   const int TM = micro_rows(D);
   return (size_t)block_rows(D) * BN + (size_t)ring_stages(TM) * stage_floats(TM);
@@ -261,14 +270,15 @@ __device__ __forceinline__ void fma_chunk(const float* As, const float* Bs, int 
 }
 
 // One product over a tile of BM rows from r0 (rows >= rlim read as zero):
-//   kSecond = false: acc = H[rows, :] X[:, J], depth chunks of KC;
+//   kSecond = false: acc = A[rows, :] X[:, J], depth chunks of KC (RB,
+//                    Gs and the cluster unused);
 //   kSecond = true:  acc = X[rows, :] G[:, J], depth chunks inside each
 //                    owner's slice of G.
 // Ends with every stage free (barrier) and no copy in flight.
-template <int TM, bool VEC, bool kSecond>
+template <int TM, bool VEC, bool kSecond, class Cluster>
 __device__ __forceinline__ void product(const float* __restrict__ A, const float* __restrict__ X,
                                         int D, int RB, int j0, int r0, int rlim,
-                                        cg::cluster_group& cluster, float* Gs, float* ring,
+                                        Cluster& cluster, float* Gs, float* ring,
                                         int arow, int bcol, float (&acc)[TM][4]) {
   constexpr int BM = tile_rows(TM), S = ring_stages(TM), STAGE = stage_floats(TM);
   const int per = (RB + KC - 1) / KC;
@@ -409,6 +419,66 @@ int launch(const float* H, const float* X, float* out, int B, int D, cudaStream_
   return (int)cudaGetLastError();
 }
 
+// The wide path: one pass of out = op(A B) over a grid of BM x BN output
+// tiles, (D / BM, D / BN, B), TM = 8, with the staging ring and register
+// tiles of product(): kSecond = false writes G = H X (A = H, B = X),
+// kSecond = true writes 2 X - X G (A = X, B = G).
+template <bool VEC, bool kSecond>
+__global__ void __launch_bounds__(NT, 2)
+gemm_pass_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
+                 float* __restrict__ C, int D) {
+  constexpr int TM = 8;
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+  const int r0 = blockIdx.x * tile_rows(TM), j0 = blockIdx.y * BN;
+  const size_t off = (size_t)blockIdx.z * D * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int arow = (warp >> 1) * 4 * TM + (lane >> 3) * TM;
+  const int bcol = (warp & 1) * 32 + (lane & 7) * 4;
+  int no_cluster = 0;
+
+  float acc[TM][4];
+  product<TM, VEC, false>(A + off, Bm + off, D, KC, j0, r0, D, no_cluster, nullptr, ring, arow,
+                          bcol, acc);
+  const int j = j0 + bcol;
+#pragma unroll
+  for (int m = 0; m < TM; ++m) {
+    const int r = r0 + arow + m;
+    if (r >= D) continue;
+    const float* x = A + off + (size_t)r * D + j;  // X[r, j] in the second pass
+    float* o = C + off + (size_t)r * D + j;
+    float v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = kSecond ? 2.f * (j + q < D ? x[q] : 0.f) - acc[m][q] : acc[m][q];
+    if constexpr (VEC) {
+      if (j < D) *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (j + q < D) o[q] = v[q];
+    }
+  }
+}
+
+template <bool VEC>
+int launch_wide(const float* H, const float* X, float* G, float* out, int B, int D,
+                cudaStream_t stream) {
+  const size_t smem = (size_t)ring_stages(8) * stage_floats(8) * sizeof(float);
+  const dim3 grid((unsigned)((D + tile_rows(8) - 1) / tile_rows(8)),
+                  (unsigned)((D + BN - 1) / BN), (unsigned)B);
+  cudaError_t err = cudaFuncSetAttribute(gemm_pass_kernel<VEC, false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(gemm_pass_kernel<VEC, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  gemm_pass_kernel<VEC, false><<<grid, NT, smem, stream>>>(H, X, G, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  gemm_pass_kernel<VEC, true><<<grid, NT, smem, stream>>>(X, G, out, D);
+  return (int)cudaGetLastError();
+}
+
 template <int TM>
 int launch_tm(const float* H, const float* X, float* out, int B, int D, cudaStream_t stream) {
   const bool vec = D % 4 == 0 && (uintptr_t)H % 16 == 0 && (uintptr_t)X % 16 == 0 &&
@@ -421,8 +491,18 @@ int launch_tm(const float* H, const float* X, float* out, int B, int D, cudaStre
 
 // Returns cudaGetLastError() after the launch (0 on success); a refused
 // launch (shared memory, a cluster the card cannot schedule) returns its error.
-extern "C" int pgpfa_ns_step(const float* H, const float* X, float* out, int B, int D,
+// G: a (B, D, D) f32 workspace for G = H X, or null. With it the step runs
+// as the wide path's two passes; without it as one cluster launch, which
+// holds G in shared memory and is refused above the width where that fits
+// (ns_step_smem_bytes in ops/cuda_kernels.py).
+extern "C" int pgpfa_ns_step(const float* H, const float* X, float* G, float* out, int B, int D,
                              cudaStream_t stream) {
+  if (G) {
+    const bool vec = D % 4 == 0 && (uintptr_t)H % 16 == 0 && (uintptr_t)X % 16 == 0 &&
+                     (uintptr_t)G % 16 == 0 && (uintptr_t)out % 16 == 0;
+    return vec ? launch_wide<true>(H, X, G, out, B, D, stream)
+               : launch_wide<false>(H, X, G, out, B, D, stream);
+  }
   return micro_rows(D) == 2 ? launch_tm<2>(H, X, out, B, D, stream)
                             : launch_tm<8>(H, X, out, B, D, stream);
 }

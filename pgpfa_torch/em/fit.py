@@ -130,16 +130,17 @@ def fit(
         config: :class:`FitConfig` (defaults to batch Laplace EM;
             ``inference_method="variational"`` for the dual variational
             E-step).
-        device, dtype: where and in what precision the fit runs (f64 only
-            for now). The default is the card, which runs the CUDA kernels;
+        device, dtype: where and in what precision the fit runs:
+            ``torch.float64``, or ``torch.float32`` for the f32 fast mode
+            (the JAX package's ``PGPFA_X64=0``: the whole EM in f32, f32
+            factors used without refinement, f32-calibrated tolerances).
+            The default is the card, which runs the CUDA kernels;
             there is no fallback to the CPU. Pass ``device="cpu"`` to run
             the kernels' plain PyTorch versions on the CPU.
     """
     cfg = config or FitConfig()
-    is_params = isinstance(init_params, Params)
-    if (init_params.C.dtype if is_params else dtype) != torch.float64:
-        raise NotImplementedError("the f32 fast mode is not ported yet")
-    p = init_params if is_params else params_from_numpy(init_params, device, dtype)
+    p = init_params if isinstance(init_params, Params) else params_from_numpy(
+        init_params, device, dtype)
     Y = torch.as_tensor(Y, dtype=p.C.dtype, device=p.C.device)
     T = Y.shape[-1]
     bin_size_ms = float(bin_size_ms)

@@ -7,7 +7,8 @@ posterior mean is ``-K C_big (lambda - y)`` and the precision
 ``K^{-1} + C_big diag(lambda) C_big^T`` plus a 1e-6 relative diagonal ridge.
 Every cost evaluation factors the ``(R, xdim*T, xdim*T)`` precision of all
 trials at once in f32 (the ``chol32`` kernel on CUDA) and refines in f64
-(the ``ns_step`` kernel for the f32 Newton-Schulz steps).
+(the ``ns_step`` kernel for the f32 Newton-Schulz steps); the f32 fast mode
+takes the f32 factor's inverse as it is.
 
 Two solvers, chosen by the caller: ``'newton'``, a damped dual-Newton whose
 direction comes by the Woodbury identity from the same factorization as the
@@ -140,7 +141,7 @@ def _solve_dual(C, d, K, Kinv, Y, rho_init, maxiter, gtol, ridge, solver):
     """Minimize every trial's dual; returns ``(rho, bound)`` per trial."""
     if solver not in SOLVERS:
         raise ValueError(f"unknown VI solver {solver!r}; choose 'newton' or 'lbfgs'")
-    slack_coef = 1e-13  # f64
+    slack_coef = 1e-13 if C.dtype == torch.float64 else 1e-6
     if solver == "newton":
         def make_step(n):
             return lambda c: _newton_vi_steps(c, Y, C, d, K, Kinv, ridge, n)
@@ -180,10 +181,11 @@ def vi_estep_from_arrays(
     ridge: float = 1e-6,
     solver: str = "lbfgs",
 ):
-    """Batched dual variational inference over all trials (f64).
+    """Batched dual variational inference over all trials (f64, or the f32
+    fast mode).
 
     Args:
-        C, d, tau: model parameters (tensors on one device, f64).
+        C, d, tau: model parameters (tensors on one device, f64 or f32).
         Y: spike counts ``(R, ydim, T)``.
         rho_init: warm start ``(R, ydim, T)`` (zeros if None).
         maxiter: iteration budget of the dual solve.
@@ -196,8 +198,6 @@ def vi_estep_from_arrays(
         ``var_lower_bound`` the mean converged dual cost; ``newton_iters``
         are zeros.
     """
-    if C.dtype != torch.float64:
-        raise NotImplementedError("the f32 fast mode of the variational E-step is not ported yet")
     R, ydim, _ = Y.shape
     xdim = C.shape[1]
     K = rbf_kernel(tau, T, bin_size_ms, eps_noise)

@@ -47,29 +47,33 @@ def cd_cost(vec: torch.Tensor, Y: torch.Tensor, means: torch.Tensor,
 
 
 def learn_cd_newton(Y, means, vsms, C0, d0, n_iter: int = 10) -> CdResult:
-    """All-neurons batched Newton for the (C, d) M-step.
+    """All-neurons batched Newton for the (C, d) M-step, in f64 or f32.
 
     Moment tensors over the flattened sample axis ``s = R*T`` (``m``, ``V``,
     ``m (x) m``, ``m (x) V``, ``V (x) V``) are formed once, so every
     per-iteration statistic is one ``(ydim, s) @ (s, x^k)`` matmul against the
-    current rates. A rejected step shrinks that neuron's damping 4x for the
-    retry; an accepted one resets it. ``niter`` counts the iterations in which
-    at least one neuron accepted.
+    current rates. Above xdim 8 the ``x^4`` tensor is never formed: the
+    Hessian's second-moment block is the weighted outer-product sum of
+    ``u = m + V c`` per (neuron, sample). A rejected step shrinks that
+    neuron's damping 4x for the retry; an accepted one resets it. In f32 a
+    candidate within ``2e-6 (1 + |f|)`` of the cost is accepted (the cost
+    cannot resolve smaller gains), and the carried cost stays the minimum.
+    ``niter`` counts the iterations in which at least one neuron accepted.
     """
     R, ydim, T = Y.shape
     xdim = C0.shape[1]
-    if C0.dtype != torch.float64:
-        raise NotImplementedError("the f32 fast mode of the (C, d) M-step is not ported yet")
-    if xdim > 8:
-        raise NotImplementedError("the contraction form for xdim > 8 is not ported yet")
     q = xdim + 1
     s = R * T
+    contraction = xdim > 8
 
     M2 = means.transpose(1, 2).reshape(s, xdim)  # (s, x)
     Vf = vsms.reshape(s, xdim * xdim)  # (s, x^2)
-    P2 = (M2[:, :, None] * M2[:, None, :]).reshape(s, xdim * xdim)  # m (x) m
-    MV = (M2[:, :, None] * Vf[:, None, :]).reshape(s, xdim**3)  # m (x) V
-    VV = (Vf[:, :, None] * Vf[:, None, :]).reshape(s, xdim**4)  # V (x) V
+    if contraction:
+        V3 = vsms.reshape(s, xdim, xdim)
+    else:
+        P2 = (M2[:, :, None] * M2[:, None, :]).reshape(s, xdim * xdim)  # m (x) m
+        MV = (M2[:, :, None] * Vf[:, None, :]).reshape(s, xdim**3)  # m (x) V
+        VV = (Vf[:, :, None] * Vf[:, None, :]).reshape(s, xdim**4)  # V (x) V
     Yf = Y.transpose(0, 1).reshape(ydim, s)  # (ydim, s)
     Ym = Yf @ M2  # (ydim, x): sum_s y m
     Ysum = Yf.sum(1)  # (ydim,)
@@ -92,15 +96,22 @@ def learn_cd_newton(Y, means, vsms, C0, d0, n_iter: int = 10) -> CdResult:
         C = theta[:, :-1]
         W = (rate @ Vf).reshape(ydim, xdim, xdim)  # sum rate * V
         rsum = rate.sum(1)
-        A1 = rate @ M2  # sum rate * m
-        Wc = torch.einsum("nkl,nl->nk", W, C)  # sum rate * (V c)
-        A1Wc = A1 + Wc
-        S_mm = (rate @ P2).reshape(ydim, xdim, xdim)
-        S_mv = (rate @ MV).reshape(ydim, xdim, xdim, xdim)  # [n,k,l,j]: m_k V_lj
-        T2 = torch.einsum("nklj,nj->nkl", S_mv, C)  # sum rate * m (Vc)^T
-        S_vv = (rate @ VV).reshape(ydim, xdim, xdim, xdim, xdim)  # [n,k,i,l,j]
-        T4 = torch.einsum("nkilj,ni,nj->nkl", S_vv, C, C)
-        H_cc = (S_mm + T2 + T2.transpose(1, 2) + T4 + W) / R
+        if contraction:
+            # U (ydim, s, x): ~50 MB f64 at the Stevenson shape
+            U = M2 + torch.einsum("skl,nl->nsk", V3, C)
+            RU = rate[:, :, None] * U
+            A1Wc = RU.sum(1)  # sum rate * u
+            H_cc = (RU.transpose(1, 2) @ U + W) / R  # (sum rate * u u^T + W) / R
+        else:
+            A1 = rate @ M2  # sum rate * m
+            Wc = torch.einsum("nkl,nl->nk", W, C)  # sum rate * (V c)
+            A1Wc = A1 + Wc
+            S_mm = (rate @ P2).reshape(ydim, xdim, xdim)
+            S_mv = (rate @ MV).reshape(ydim, xdim, xdim, xdim)  # [n,k,l,j]: m_k V_lj
+            T2 = torch.einsum("nklj,nj->nkl", S_mv, C)  # sum rate * m (Vc)^T
+            S_vv = (rate @ VV).reshape(ydim, xdim, xdim, xdim, xdim)  # [n,k,i,l,j]
+            T4 = torch.einsum("nkilj,ni,nj->nkl", S_vv, C, C)
+            H_cc = (S_mm + T2 + T2.transpose(1, 2) + T4 + W) / R
 
         g_c = -(Ym - A1Wc) / R
         g_d = -(Ysum - rsum) / R
@@ -111,6 +122,7 @@ def learn_cd_newton(Y, means, vsms, C0, d0, n_iter: int = 10) -> CdResult:
         bot = torch.cat([H_cd, H_dd[:, None]], dim=1)[:, None, :]
         return g, torch.cat([top, bot], dim=1)  # (ydim, q, q)
 
+    slack_coef = 0.0 if C0.dtype == torch.float64 else 2e-6
     eye_q = torch.eye(q, dtype=C0.dtype, device=C0.device)
     th = theta0
     rate = rates(th)
@@ -124,7 +136,7 @@ def learn_cd_newton(Y, means, vsms, C0, d0, n_iter: int = 10) -> CdResult:
         rate_c = rates(cand)
         f_c = cost_from(cand, rate_c)
         f_c = torch.where(torch.isfinite(f_c), f_c, torch.inf)
-        better = f_c < f
+        better = f_c < f + slack_coef * (1.0 + f.abs())
         th = torch.where(better[:, None], cand, th)
         f = torch.where(better, torch.minimum(f_c, f), f)
         rate = torch.where(better[:, None], rate_c, rate)

@@ -32,7 +32,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> (argtypes, restype)
 _SIGNATURES = {
-    "pgpfa_ns_step": ([_P, _P, _P, _I, _I, _P], _I),
+    "pgpfa_ns_step": ([_P, _P, _P, _P, _I, _I, _P], _I),
     "pgpfa_chol32": ([_P, _P, _I, _I, _P], _I),
 }
 

@@ -14,8 +14,10 @@ Mixed precision, as in the JAX package: factor in f32 (the :func:`chol32`
 kernel), then recover f64 accuracy by residual refinement: iterative
 refinement for solves, Newton-Schulz steps (the :func:`ns_step` kernel for
 the f32 ones) for inverses, and a residual Taylor series for log-determinants.
-Only the f64 branch of each function is ported; the f32 fast mode comes later.
-The triangular solves are ``torch.cholesky_solve``.
+In the f32 fast mode (f32 inputs) solves take no refinement by default and
+inverses are the symmetrized ``cholesky_solve(I)`` of the factor: refinement
+in the factor's own precision cannot improve the forward error. The
+triangular solves are ``torch.cholesky_solve``.
 """
 
 from __future__ import annotations
@@ -69,9 +71,19 @@ def _coarse_solve(L32: torch.Tensor, b: torch.Tensor, dtype, vec: bool) -> torch
     return torch.cholesky_solve(b32, L32, upper=False).to(dtype)
 
 
-def solve_psd_structured(W, B, rhs, L32, ir_steps: int = 2) -> torch.Tensor:
+def _ir_steps(ir_steps, dtype) -> int:
+    """Refinement steps: 2 in f64 and 0 in f32 by default (``None``); an
+    explicit count is honored in either dtype."""
+    if ir_steps is None:
+        return 2 if dtype == torch.float64 else 0
+    return ir_steps
+
+
+def solve_psd_structured(W, B, rhs, L32, ir_steps=None) -> torch.Tensor:
     """``H^{-1} rhs`` from the f32 factor ``L32`` of ``H`` with ``ir_steps``
-    f64 refinement steps whose residuals use :func:`structured_mm`."""
+    refinement steps (default 2 in f64, 0 in f32) whose residuals use
+    :func:`structured_mm`."""
+    ir_steps = _ir_steps(ir_steps, rhs.dtype)
     vec = rhs.dim() == W.dim() - 2
     x = _coarse_solve(L32, rhs, rhs.dtype, vec)
     for _ in range(ir_steps):
@@ -85,6 +97,10 @@ def inv_psd_structured(W, B, ns_steps: int = 3, f64_steps: int = 1, L32=None):
     assembled only in f32; every f64 residual uses :func:`structured_mm`."""
     dt = B.dtype
     D = B.shape[-3] * B.shape[-2]
+    if dt != torch.float64:
+        if L32 is None:
+            L32 = chol32(assemble_hessian(W, B))
+        return _sym(_inv32(L32).to(dt))
     f64_steps = min(f64_steps, ns_steps)
     H32 = None
     if L32 is None or ns_steps > f64_steps:
@@ -100,7 +116,7 @@ def inv_psd_structured(W, B, ns_steps: int = 3, f64_steps: int = 1, L32=None):
     for _ in range(f64_steps):
         Rres = eye - structured_mm(W, B, X)
         X = X + (X.to(torch.float32) @ Rres.to(torch.float32)).to(dt)
-    return 0.5 * (X + X.transpose(-1, -2))
+    return _sym(X)
 
 
 def cov_views(cov: torch.Tensor, xdim: int, T: int):
@@ -118,9 +134,11 @@ def chol32(H: torch.Tensor) -> torch.Tensor:
 
 
 def solve_psd_mixed(H: torch.Tensor, rhs: torch.Tensor, L32=None,
-                    ir_steps: int = 2) -> torch.Tensor:
-    """``H x = rhs`` by an f32 factorization and ``ir_steps`` f64 iterative
-    refinement steps. ``rhs`` is ``(..., D)`` or ``(..., D, k)``."""
+                    ir_steps=None) -> torch.Tensor:
+    """``H x = rhs`` by an f32 factorization and ``ir_steps`` iterative
+    refinement steps (default 2 in f64, 0 in f32). ``rhs`` is ``(..., D)`` or
+    ``(..., D, k)``."""
+    ir_steps = _ir_steps(ir_steps, H.dtype)
     if L32 is None:
         L32 = chol32(H)
     vec = rhs.dim() == H.dim() - 1
@@ -136,16 +154,23 @@ def _inv32(L32: torch.Tensor) -> torch.Tensor:
     return torch.cholesky_solve(_eye(L32.shape[-1], L32).expand(L32.shape), L32, upper=False)
 
 
+def _sym(X: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (X + X.transpose(-1, -2))
+
+
 def inv_psd_mixed(H: torch.Tensor, L32=None, ns_steps: int = 3,
                   f64_steps: int = 1, X32=None) -> torch.Tensor:
     """SPD inverse by an f32 Cholesky plus Newton-Schulz refinement
     ``X <- X (2I - H X)``: the first ``ns_steps - f64_steps`` steps in f32 (the
     kernel), the last ``f64_steps`` with an f64 residual. Symmetrized.
     ``X32``, the f32 inverse from ``L32``, may be passed where the caller
-    already has it."""
+    already has it. In f32 the result is the symmetrized f32 inverse, with no
+    step."""
     D = H.shape[-1]
     if L32 is None:
         L32 = chol32(H)
+    if H.dtype != torch.float64:
+        return _sym((_inv32(L32) if X32 is None else X32).to(H.dtype))
     f64_steps = min(f64_steps, ns_steps)
     H32 = H.to(torch.float32).contiguous()
     if X32 is None:
@@ -159,7 +184,7 @@ def inv_psd_mixed(H: torch.Tensor, L32=None, ns_steps: int = 3,
         # only needs f32 (its rounding lands below the refined accuracy).
         Rres = eye - H @ X
         X = X + (X.to(torch.float32) @ Rres.to(torch.float32)).to(H.dtype)
-    return 0.5 * (X + X.transpose(-1, -2))
+    return _sym(X)
 
 
 def trace(A: torch.Tensor) -> torch.Tensor:

@@ -22,12 +22,14 @@ from collections import Counter
 
 import torch
 
-# Largest D whose shared-memory footprint fits one H100 block (227 KB).
+# Shared memory one H100 block may use (227 KB). Each kernel has a narrow
+# path, used while its footprint at width D fits, and a wide path above:
 # ns_step: each block of a cluster holds its RB x 64 slice of G = H X and a
-# ring of load stages (ns_step_smem_bytes); chol32: one nbw-column f32 panel
-# over nbw + 32 * ceil((D - nbw) / 32) rows, 4 rows of padding per column,
-# and 64 reciprocal pivots, with nbw = 64 where that fits (D <= 896) and 32
-# above (chol32_smem_bytes).
+# ring of load stages (ns_step_smem_bytes); wider, G goes to a workspace in
+# device memory. chol32: one nbw-column f32 panel over nbw + 32 * ceil((D -
+# nbw) / 32) rows, 4 rows of padding per column, and 64 reciprocal pivots,
+# with nbw = 64 where that fits (D <= 896) and 32 above; wider, 64-wide
+# panels whose rows are taken in chunks (chol32_smem_bytes).
 _SMEM_LIMIT = 232448
 
 
@@ -44,16 +46,17 @@ def ns_step_block_rows(D: int) -> int:
 
 
 def ns_step_smem_bytes(D: int) -> int:
-    """Dynamic shared memory of an ns_step block at width ``D`` (mirrors
-    ``smem_floats`` in ``csrc/ns_step.cu``): the ``RB x 64`` slice of G plus
-    3 or 6 stages (TM = 8 or 2) of a ``16 TM x 36`` A chunk and a
+    """Dynamic shared memory of an ns_step cluster block at width ``D``
+    (mirrors ``smem_floats`` in ``csrc/ns_step.cu``): the ``RB x 64`` slice
+    of G plus 3 or 6 stages (TM = 8 or 2) of a ``16 TM x 36`` A chunk and a
     ``32 x 64`` X or G chunk."""
     tm = _ns_step_micro_rows(D)
     stages = 6 if tm == 2 else 3
     return 4 * (ns_step_block_rows(D) * 64 + stages * (16 * tm * 36 + 32 * 64))
 
 
-NS_STEP_MAX_D = max(D for D in range(1, 8192) if ns_step_smem_bytes(D) <= _SMEM_LIMIT)
+# The widest D of ns_step's narrow path; wider steps take the wide path.
+NS_STEP_SWITCH_D = max(D for D in range(1, 8192) if ns_step_smem_bytes(D) <= _SMEM_LIMIT)
 
 
 def _chol32_panel_bytes(D: int, nbw: int) -> int:
@@ -61,18 +64,30 @@ def _chol32_panel_bytes(D: int, nbw: int) -> int:
     return 4 * (nbw * (rows + 4) + 64)
 
 
+# The wide chol32 path's chunk: the most rows (a multiple of 32) whose two
+# chunk slots and 64-row diagonal block, 64 columns each, fit with the 64
+# pivots (mirrors wide_chunk_rows in csrc/chol32.cu).
+CHOL32_WIDE_CHUNK = ((_SMEM_LIMIT // 4 - 64) // 64 - 64 - 4) // 2 // 32 * 32
+# The widest D of chol32's narrow path; wider matrices take the wide path.
+CHOL32_SWITCH_D = max(D for D in range(1, 4096) if _chol32_panel_bytes(D, 32) <= _SMEM_LIMIT)
+
+
 def chol32_panel_width(D: int) -> int:
     """Panel width of the chol32 kernel at width ``D``: 64 where the panel
-    fits one block's shared memory, else 32."""
+    fits one block's shared memory, else 32 up to ``CHOL32_SWITCH_D``, and
+    64 on the wide path above."""
+    if D > CHOL32_SWITCH_D:
+        return 64
     return 64 if _chol32_panel_bytes(D, 64) <= _SMEM_LIMIT else 32
 
 
 def chol32_smem_bytes(D: int) -> int:
     """Dynamic shared memory of the chol32 kernel at width ``D``."""
+    if D > CHOL32_SWITCH_D:
+        return 4 * (64 * (64 + 2 * CHOL32_WIDE_CHUNK + 4) + 64)
     return _chol32_panel_bytes(D, chol32_panel_width(D))
 
 
-CHOL32_MAX_D = max(D for D in range(1, 4096) if chol32_smem_bytes(D) <= _SMEM_LIMIT)
 _MAX_GRID_Y = 65535
 
 
@@ -124,19 +139,22 @@ def _launch(name: str, fn: str, device: torch.device, *args):
 
 def ns_step(H32: torch.Tensor, X32: torch.Tensor) -> torch.Tensor:
     """One Newton-Schulz step ``2 X - X (H X)`` for ``(B, D, D)`` or
-    ``(D, D)`` float32 matrices."""
+    ``(D, D)`` float32 matrices, any ``D``."""
     if H32.device.type == "cpu" and X32.device.type == "cpu":
         return ns_step_plain(H32, X32)
     _check_batch("ns_step", H32, X32)
     squeeze = H32.dim() == 2
     H3, X3 = (H32[None], X32[None]) if squeeze else (H32, X32)
     B, D = H3.shape[0], H3.shape[-1]
-    if D > NS_STEP_MAX_D or B > _MAX_GRID_Y:
-        raise ValueError(f"ns_step: (B, D) = ({B}, {D}) exceeds ({_MAX_GRID_Y}, {NS_STEP_MAX_D})")
+    if B > _MAX_GRID_Y:
+        raise ValueError(f"ns_step: batch {B} exceeds the grid's {_MAX_GRID_Y}")
     out = torch.empty_like(X3)
     if B and D:
-        _launch("ns_step", "pgpfa_ns_step", H3.device,
-                H3.data_ptr(), X3.data_ptr(), out.data_ptr(), B, D)
+        # the wide path keeps G = H X in a workspace in device memory; freed
+        # on return, it is reused only in this stream's order, after the launch
+        G = torch.empty_like(X3) if D > NS_STEP_SWITCH_D else None
+        _launch("ns_step", "pgpfa_ns_step", H3.device, H3.data_ptr(), X3.data_ptr(),
+                None if G is None else G.data_ptr(), out.data_ptr(), B, D)
         ns_step.launches += 1
         ns_step.launches_by_shape[(B, D)] += 1
     return out[0] if squeeze else out
@@ -148,7 +166,7 @@ ns_step.launches_by_shape = Counter()
 
 def chol32(A32: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of ``(B, D, D)`` or ``(D, D)`` float32 SPD
-    matrices: a fresh tensor, zeros above the diagonal, NaN in the lower
+    matrices, any ``D``: a fresh tensor, zeros above the diagonal, NaN in the lower
     triangle of a matrix that is not positive definite. Reads only the lower
     triangle of ``A32``."""
     if A32.device.type == "cpu":
@@ -157,8 +175,6 @@ def chol32(A32: torch.Tensor) -> torch.Tensor:
     squeeze = A32.dim() == 2
     A3 = A32[None] if squeeze else A32
     B, D = A3.shape[0], A3.shape[-1]
-    if D > CHOL32_MAX_D:
-        raise ValueError(f"chol32: D = {D} exceeds {CHOL32_MAX_D}")
     out = torch.empty_like(A3)
     if B and D:
         _launch("chol32", "pgpfa_chol32", A3.device, A3.data_ptr(), out.data_ptr(), B, D)

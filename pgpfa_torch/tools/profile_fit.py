@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Where the device time of the port's fit goes, on one NVIDIA GPU.
 
-    python3 pgpfa_torch/tools/profile_fit.py [laplace|variational]
+    python3 pgpfa_torch/tools/profile_fit.py [laplace|variational] [f64|f32]
 
 1. fit, under ``torch.profiler``, on the Stevenson-shaped surrogate (100
    trials x 90 neurons x 140 bins, xdim 5, Poisson-PCA init with seed 0),
-   f64. ``laplace`` (the default): a 2-iteration batch Laplace fit after a
+   in f64 (the default) or the f32 fast mode. ``laplace`` (the default): a 2-iteration batch Laplace fit after a
    one-iteration warm-up fit. ``variational``: one warm dual-Newton EM
    iteration (E-step, (C, d) and tau M-steps) at the parameters of a
    2-iteration variational fit, its dual warm-started from the solution at
@@ -58,21 +58,21 @@ def kernel_us(prof, pattern):
     return (float(np.mean(ts)) if ts else float("nan")), len(ts)
 
 
-def laplace_run(ds, init):
+def laplace_run(ds, init, dtype):
     """Warm-up fit; returns the profiled run and its label."""
-    fit(init, ds.Y, ds.binSize, FitConfig(max_em_iter=1), device="cuda")
+    fit(init, ds.Y, ds.binSize, FitConfig(max_em_iter=1), device="cuda", dtype=dtype)
 
     def run():
-        fit(init, ds.Y, ds.binSize, FitConfig(max_em_iter=2), device="cuda")
+        fit(init, ds.Y, ds.binSize, FitConfig(max_em_iter=2), device="cuda", dtype=dtype)
     return run, "2 EM iterations"
 
 
-def variational_run(ds, init):
+def variational_run(ds, init, dtype):
     """A 2-iteration variational fit and the dual solved at its first
     parameters; returns one warm EM iteration at its final parameters."""
     b, cfg = float(ds.binSize), FitConfig(inference_method="variational", max_em_iter=2)
-    res = fit(init, ds.Y, b, cfg, device="cuda")
-    Y = torch.as_tensor(ds.Y, device="cuda")
+    res = fit(init, ds.Y, b, cfg, device="cuda", dtype=dtype)
+    Y = torch.as_tensor(ds.Y, dtype=dtype, device="cuda")
     K1 = rbf_kernel(res.tau_seq[0], ds.T, b)
     rho1, _ = V._solve_dual(res.C_seq[0], res.d_seq[0], K1, blocks_inv(K1), Y,
                             torch.zeros_like(Y), cfg.vi_maxiter, cfg.vi_gtol, 1e-6, "newton")
@@ -86,10 +86,10 @@ def variational_run(ds, init):
     return run, "1 warm variational EM iteration"
 
 
-def profile_fit(method):
+def profile_fit(method, dtype):
     ds = stevenson_surrogate(xdim=5, seed=2011)
     init = initialize_params(5, ds.ydim, ds, seed=0)
-    run, label = {"laplace": laplace_run, "variational": variational_run}[method](ds, init)
+    run, label = {"laplace": laplace_run, "variational": variational_run}[method](ds, init, dtype)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -97,7 +97,7 @@ def profile_fit(method):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy = sum(e.time_range.elapsed_us() for e in device_events(prof)) / 1e6
-    print(f"fit ({method}): {label}, wall {wall:.4f} s (profiler on), device busy {busy:.4f} s "
+    print(f"fit ({method}, {str(dtype)[6:]}): {label}, wall {wall:.4f} s (profiler on), device busy {busy:.4f} s "
           f"= {100 * busy / wall:.1f}% of the wall, idle {100 * (1 - busy / wall):.1f}%")
 
     by_op = defaultdict(float)
@@ -161,14 +161,18 @@ def profile_ns_step():
 
 def main():
     method = sys.argv[1] if len(sys.argv) > 1 else "laplace"
+    precision = sys.argv[2] if len(sys.argv) > 2 else "f64"
     if method not in ("laplace", "variational"):
         raise SystemExit(f"profile_fit: unknown method {method!r}; choose laplace or variational")
+    dtypes = {"f64": torch.float64, "f32": torch.float32}
+    if precision not in dtypes:
+        raise SystemExit(f"profile_fit: unknown precision {precision!r}; choose f64 or f32")
     if not torch.cuda.is_available():
         raise SystemExit("profile_fit: needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"nvidia-smi: {smi}; torch {torch.__version__}")
-    profile_fit(method)
+    profile_fit(method, dtypes[precision])
     profile_ns_step()
 
 

@@ -200,8 +200,10 @@ def test_library_path_keys_on_sources():
 
 
 def test_shared_memory_limits():
-    """Largest D whose tiles fit one block's 227 KB of shared memory."""
-    ns, D = cuda_kernels.ns_step_smem_bytes, cuda_kernels.NS_STEP_MAX_D
+    """The switch widths between each kernel's two paths: the largest D whose
+    narrow-path footprint fits one block's 227 KB of shared memory; above it
+    the wide path's footprint, which does not grow with D, fits."""
+    ns, D = cuda_kernels.ns_step_smem_bytes, cuda_kernels.NS_STEP_SWITCH_D
     assert ns(D) <= 232448 < ns(D + 1)
     # the G slice (RB x 64) and 6 stages of 32 x 36 + 32 x 64 at the path's
     # width; 3 stages of 128 x 36 + 32 x 64 at the Laplace Hessian's width,
@@ -210,31 +212,35 @@ def test_shared_memory_limits():
     assert ns(700) == 4 * (128 * 64 + 3 * (128 * 36 + 32 * 64))
     assert 2 * (ns(700) + 1024) <= 228 * 1024
     assert ns(D) == 4 * (cuda_kernels.ns_step_block_rows(D) * 64 + 3 * (128 * 36 + 32 * 64))
-    smem, D = cuda_kernels.chol32_smem_bytes, cuda_kernels.CHOL32_MAX_D
-    assert smem(D) <= 232448 < smem(D + 1)
+    smem, D = cuda_kernels.chol32_smem_bytes, cuda_kernels.CHOL32_SWITCH_D
+    assert smem(D) <= 232448 and cuda_kernels._chol32_panel_bytes(D + 1, 32) > 232448
     assert smem(700) == 4 * (64 * 708 + 64)  # the Laplace Hessian's width, 64-wide panels
     width = cuda_kernels.chol32_panel_width
-    assert (width(896), width(897), width(D)) == (64, 32, 32)
+    assert (width(896), width(897), width(D), width(D + 1)) == (64, 32, 32, 64)
     assert smem(D) == 4 * (32 * (D + 4) + 64)
+    # the wide path: two chunk slots of 416 rows and the 64-row diagonal block
+    assert cuda_kernels.CHOL32_WIDE_CHUNK == 416
+    wide = 4 * (64 * (64 + 2 * 416 + 4) + 64)
+    assert smem(D + 1) == smem(8192) == wide <= 232448 < wide + 4 * 64 * 64
 
 
 @pytest.mark.parametrize("xdim,T", [(5, 140), (6, 140), (7, 140), (8, 140), (5, 352), (1, 1760)])
 def test_chol32_takes_the_laplace_hessian_widths(xdim, T):
-    """The Laplace Hessian is xdim * T wide: every latent count the port
-    supports at the Stevenson T = 140 (xdim <= 8), and every width up to 1760
-    that the first 32-wide kernel took, fit the kernel's shared memory."""
-    assert xdim * T <= cuda_kernels.CHOL32_MAX_D
+    """The Laplace Hessian is xdim * T wide: every latent count up to 8 at
+    the Stevenson T = 140, and every width up to 1760 that the first 32-wide
+    kernel took, stays on the narrow path (the whole panel in shared memory)."""
+    assert xdim * T <= cuda_kernels.CHOL32_SWITCH_D
     assert cuda_kernels.chol32_smem_bytes(xdim * T) <= 232448
 
 
 @pytest.mark.parametrize("T", [1, 140, 256, 257, 700, 1000, 1025, 1760, 1792])
 def test_ns_step_takes_the_chol32_widths(T):
-    """Every width chol32 factors, ns_step takes: blocks_inv runs two f32
-    steps on the (xdim, T, T) prior blocks whose T x T factor is chol32's,
-    so T up to CHOL32_MAX_D must fit one block's shared memory with a
-    cluster of at most 8 blocks."""
-    assert cuda_kernels.NS_STEP_MAX_D >= cuda_kernels.CHOL32_MAX_D
-    assert T <= cuda_kernels.CHOL32_MAX_D
+    """blocks_inv runs two f32 steps on the (xdim, T, T) prior blocks whose
+    T x T factor is chol32's: every width of chol32's narrow path takes
+    ns_step's narrow path, a cluster of at most 8 blocks whose G slices fit
+    shared memory."""
+    assert cuda_kernels.NS_STEP_SWITCH_D >= cuda_kernels.CHOL32_SWITCH_D
+    assert T <= cuda_kernels.CHOL32_SWITCH_D
     assert cuda_kernels.ns_step_smem_bytes(T) <= 232448
     assert -(-T // cuda_kernels.ns_step_block_rows(T)) <= 8
 
@@ -340,7 +346,7 @@ def _ns_inputs_cuda(B, D, seed):
                                  (5, 63), (5, 64), (5, 65), (5, 127), (5, 128), (5, 129),
                                  (5, 139), (100, 140), (3, 256), (3, 257), (3, 512), (3, 513),
                                  (1, 1000), (5, 1000), (2, 1024), (2, 1025), (2, 1792),
-                                 (1, cuda_kernels.NS_STEP_MAX_D)])
+                                 (1, cuda_kernels.NS_STEP_SWITCH_D)])
 def test_cuda_ns_step_matches_plain(B, D):
     """Kernel vs two cuBLAS f32 matmuls (TF32 off): 2e-5 relative to max|X'|.
     The widths reach the edges of the 32-deep chunks, the 64-column tiles,
@@ -413,6 +419,82 @@ def test_cuda_blocks_inv_at_t1000():
     assert ns_step.launches == n + 2
     want = blocks_inv(K)
     assert rel_err(got, want) <= 1e-9
+
+
+@requires_cuda
+@pytest.mark.parametrize("B,D", [(2, 1793), (1, 2100), (1, 4096)])
+def test_cuda_chol32_wide_path(B, D):
+    """Above CHOL32_SWITCH_D (the wide path: 64-wide panels in chunks of 416
+    rows) the kernel matches its plain version to the narrow path's 2e-5,
+    leaves its input as it was and reads only its lower triangle (NaN above
+    the diagonal changes nothing). The widths take one chunk boundary, a
+    ragged last chunk (2100 = 64 + 4 x 416 + 372) and ten chunks."""
+    assert D > cuda_kernels.CHOL32_SWITCH_D
+    A = torch.from_numpy(spd_batch(np.random.default_rng(D), B, D, dtype=np.float32)).cuda()
+    before = A.clone()
+    n = chol32.launches_by_shape[(B, D)]
+    L = chol32(A)
+    torch.cuda.synchronize()
+    assert chol32.launches_by_shape[(B, D)] == n + 1
+    assert torch.equal(A, before)
+    torch.testing.assert_close(L, chol32_plain(A), rtol=2e-5, atol=2e-5)
+    assert torch.equal(L, L.tril())
+    garbage = A.tril() + torch.triu(torch.full_like(A, float("nan")), 1)
+    assert torch.equal(chol32(garbage), L)
+
+
+@requires_cuda
+@pytest.mark.parametrize("col", [100, 2090])
+def test_cuda_chol32_wide_path_non_pd(col):
+    """On the wide path a negative pivot in the second panel (column 100) or
+    in the last (column 2090 of 2100) gives NaN in the whole lower triangle
+    of that matrix and zeros above; its neighbour matches the plain version."""
+    A = torch.from_numpy(spd_batch(np.random.default_rng(9), 2, 2100, dtype=np.float32)).cuda()
+    A[0, col, col] = -1.0
+    L = chol32(A)
+    torch.cuda.synchronize()
+    lower = torch.ones(2100, 2100, dtype=torch.bool, device="cuda").tril()
+    assert torch.isnan(L[0][lower]).all() and (L[0][~lower] == 0).all()
+    torch.testing.assert_close(L[1], chol32_plain(A[1:])[0], rtol=2e-5, atol=2e-5)
+
+
+@requires_cuda
+@pytest.mark.parametrize("B,D", [(1, 4769), (2, 6000)])
+def test_cuda_ns_step_wide_path(B, D):
+    """Above NS_STEP_SWITCH_D (G = H X in a device workspace, two passes) the
+    step matches two cuBLAS f32 matmuls to the narrow path's 2e-5 of
+    max|X'|, on both copy paths (D % 4 != 0 and == 0), and leaves H and X
+    as they were."""
+    assert D > cuda_kernels.NS_STEP_SWITCH_D
+    torch.backends.cuda.matmul.allow_tf32 = False
+    H, X = _ns_inputs_cuda(B, D, D)
+    H0, X0 = H.clone(), X.clone()
+    n = ns_step.launches
+    out = ns_step(H, X)
+    torch.cuda.synchronize()
+    assert ns_step.launches == n + 1
+    assert torch.equal(H, H0) and torch.equal(X, X0)
+    want = ns_step_plain(H, X)
+    assert float((out - want).abs().max()) <= 2e-5 * float(want.abs().max())
+
+
+@requires_cuda
+@pytest.mark.parametrize("T", [1800, 4800])
+def test_cuda_blocks_inv_wide(T):
+    """blocks_inv of a (1, T, T) RBF prior past chol32's switch (T = 1800)
+    and past ns_step's too (T = 4800) against the same call on the CPU:
+    1e-9 relative, as at T = 1000 (tau = 0.04 s at 10 ms bins keeps
+    kappa(K) ~ 1e4 at any T)."""
+    from pgpfa_torch.models.params import rbf_kernel
+    from pgpfa_torch.ops.blockmat import blocks_inv
+
+    K = rbf_kernel(torch.tensor([0.04], dtype=torch.float64), T, 10.0)
+    n_ch, n_ns = chol32.launches_by_shape[(1, T)], ns_step.launches_by_shape[(1, T)]
+    got = blocks_inv(K.cuda())
+    torch.cuda.synchronize()
+    assert chol32.launches_by_shape[(1, T)] == n_ch + 1
+    assert ns_step.launches_by_shape[(1, T)] == n_ns + 2
+    assert rel_err(got, blocks_inv(K)) <= 1e-9
 
 
 @requires_cuda

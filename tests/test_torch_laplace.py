@@ -105,8 +105,14 @@ def test_newton_maxiter_freezes_lanes(problem):
 
 
 def test_newton_solve_rejects_f32(problem):
+    """The f32 fast mode of the Newton solve runs (it was refused before the
+    port had it; tests/test_torch_f32.py holds it against the JAX package):
+    finite f32 modes and objectives."""
     ds, init = problem
     X0 = torch.zeros(ds.numTrials, 2, ds.T)
-    with pytest.raises(NotImplementedError):
-        _newton_solve(t64(ds.Y).float(), X0, t64(init["C"]).float(), t64(init["d"]).float(),
-                      torch.eye(ds.T).expand(2, ds.T, ds.T), torch.ones(ds.ydim), 1e-8, 10)
+    X, f, it, W, L32 = _newton_solve(
+        t64(ds.Y).float(), X0, t64(init["C"]).float(), t64(init["d"]).float(),
+        torch.eye(ds.T).expand(2, ds.T, ds.T), torch.ones(ds.ydim), 1e-8, 10)
+    assert X.dtype == f.dtype == W.dtype == L32.dtype == torch.float32
+    assert bool(torch.isfinite(X).all() and torch.isfinite(f).all())
+    assert int(it.min()) >= 1

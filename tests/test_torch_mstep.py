@@ -60,6 +60,39 @@ def test_learn_cd_newton(moments, n_iter):
         assert float(t.grad_norm) < 1e-6 and float(j.grad_norm) < 1e-6
 
 
+@pytest.fixture(scope="module")
+def moments_x10():
+    """Random moments at xdim 10, the problem of tests/test_mstep.py's
+    contraction-branch test (R 3, ydim 7, T 10) one latent wider."""
+    rng = np.random.default_rng(3)
+    R, ydim, T, xdim = 3, 7, 10, 10
+    means = rng.normal(0, 0.5, (R, xdim, T))
+    A = rng.normal(0, 0.2, (R, T, xdim, xdim))
+    vsms = np.einsum("rtij,rtkj->rtik", A, A) + 0.05 * np.eye(xdim)
+    C0 = rng.uniform(-0.3, 0.3, (ydim, xdim))
+    d0 = rng.uniform(-1.0, 0.0, ydim)
+    Y = rng.poisson(np.exp(np.clip(np.einsum("nk,rkt->rnt", C0, means) + d0[:, None], None,
+                                   2.0))).astype(float)
+    return Y, means, vsms, C0, d0
+
+
+@pytest.mark.parametrize("n_iter", [3, 25])
+def test_learn_cd_newton_contraction_xdim10(moments_x10, n_iter):
+    """xdim > 8 takes the contraction form (u = m + V c; the x^4 moment
+    tensor is never formed) on both sides. After 3 steps (still converging)
+    the iterates agree to 1e-12; after 25 (converged, with near-optimum
+    accept/reject ties on cost rounding as at xdim 2) to 1e-7, the costs to
+    1e-13 relative and both gradients are below 1e-6."""
+    j = jobs.learn_cd_newton(*map(jnp.asarray, moments_x10), n_iter=n_iter)
+    t = tobs.learn_cd_newton(*map(t64, moments_x10), n_iter=n_iter)
+    tol = 1e-12 if n_iter == 3 else 1e-7
+    np.testing.assert_allclose(npy(t.C), np.asarray(j.C), rtol=0, atol=tol)
+    np.testing.assert_allclose(npy(t.d), np.asarray(j.d), rtol=0, atol=tol)
+    assert abs(float(t.cost) - float(j.cost)) <= 1e-13 * abs(float(j.cost))
+    if n_iter == 25:
+        assert float(t.grad_norm) < 1e-6 and float(j.grad_norm) < 1e-6
+
+
 def test_learn_cd_newton_branch_only(moments):
     ds, init, m = moments
     args = tuple(map(t64, (ds.Y, m["post_mean"], m["post_vsm"], init["C"], init["d"])))

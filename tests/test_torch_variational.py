@@ -176,9 +176,12 @@ def test_vi_warm_start_from_converged_rho(problem, torch_esteps, solver):
 def test_vi_estep_rejects_unknown_solver_and_f32(problem):
     with pytest.raises(ValueError, match="'newton' or 'lbfgs'"):
         TV.vi_estep_from_arrays(*_targs(problem), solver="auto")
+    # the f32 fast mode runs (tests/test_torch_f32.py holds it against JAX)
     C, d, tau, Y, T, b = _targs(problem)
-    with pytest.raises(NotImplementedError):
-        TV.vi_estep_from_arrays(C.float(), d.float(), tau.float(), Y.float(), T, b)
+    _, pll, vlb, rho = TV.vi_estep_from_arrays(C.float(), d.float(), tau.float(), Y.float(), T, b,
+                                               solver="newton")
+    assert pll.dtype == vlb.dtype == rho.dtype == torch.float32
+    assert bool(torch.isfinite(pll) and torch.isfinite(vlb) and torch.isfinite(rho).all())
 
 
 def _toy_driver(maxiter, chunk, stall_after, gtol=None, g=1.0):
