@@ -54,6 +54,17 @@ Phases (any failure raises and the exit code is not 0):
    (100, 700, 700), ``ns_step`` never; nPLL, bound and tau within the f32
    envelope of the f64 fits of those phases, nPLL and bound rising; one
    warm f32 iteration of each timed by phase, twice.
+9. online: f64 online EM, batch 10, same data and init. (a) A one-iteration
+   warm-up, then 10 timed iterations of the ``'diag'`` rule on the original
+   NumPy reference's own minibatch stream
+   (``BASELINE_MEASURED_ONLINE_TRAJ.json``), held to the exact SciPy
+   oracle's trajectory on that stream (``ORACLE_ONLINE_TRAJ.json``);
+   ``chol32`` launched at (10, 700, 700) and ``ns_step`` launched. (b) The
+   five other rules, the C-only ``'diag'``, ``'grad'`` and ``'hess'``, and
+   ``fully_update_tau`` with ``'balancingGamma'`` and ``'diag'``: 2
+   iterations each on the card against the CPU; C-only ``'grad'`` launches
+   ``chol32`` at (1, 450, 450). (c) One warm iteration of the joint and of
+   the C-only ``'diag'`` rule, timed by phase.
 
 The last three lines of standard output are one JSON object with the
 kernels' numbers, the ``nvidia-smi`` name and power limit, and
@@ -136,6 +147,27 @@ F32_MONOTONE = 1e-3
 WIDE_INV_TOL = 1e-9
 WIDE_PLL_TOL = 1e-9
 WIDE_MODE_TOL = 1e-8
+# Online 'diag' EM on the original reference's minibatch stream
+# (BASELINE_MEASURED_ONLINE_TRAJ.json) against the exact SciPy oracle on that
+# stream (ORACLE_ONLINE_TRAJ.json): iteration 1 within 1e-6, since its inputs
+# are the oracle's; every iteration within twice the larger of the JAX
+# package's own two offsets from the oracle on this stream, max over 10
+# iterations (5.09e-4 on the TPU, BENCH_r04.json's ours_vs_oracle_maxabs;
+# 1.23e-4 on a CPU, bench.online_parity_vs_reference), rounded up.
+ONLINE_PLL_TOL1 = 1e-6
+ONLINE_PLL_TOL = 1.1e-3
+# Online EM on the card against the CPU, 2 iterations of each rule: iteration
+# 1's post_loglik to 1e-9 relative (the same inputs through two f32 factors
+# of each Hessian, both refined in f64; 7.4e-14 measured). The M-steps then
+# differ where a step's cost change falls below the cost's rounding and the
+# two devices decide its acceptance differently (per-neuron Newton counts
+# 8 against 7, L-BFGS counts 185 against 191): on NVIDIA H100 80GB HBM3 the
+# parameters after an iteration differed by up to 9.0e-7 and iteration 2's
+# post_loglik by up to 7.8e-7 over the ten paths. Each tolerance is four
+# times that, rounded up.
+ONLINE_DEV_PLL1_REL = 1e-9
+ONLINE_DEV_PARAM_TOL = 4e-6
+ONLINE_DEV_PLL2_TOL = 4e-6
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -233,9 +265,10 @@ def phase_kernels():
 
     # chol32: the Laplace Hessian (100, 700, 700), the prior and tau-derivative
     # blocks (5, 140, 140), the tau M-step's two candidates per latent
-    # (10, 140, 140), the per-neuron M-step systems (90, 6, 6), and a D that
-    # is not a multiple of 32 or 128.
-    for B, D in [(100, 700), (5, 140), (10, 140), (90, 6), (4, 260)]:
+    # (10, 140, 140), the per-neuron M-step systems (90, 6, 6), a D that is
+    # not a multiple of 32 or 128, the online minibatch's Hessians
+    # (10, 700, 700) and the online C-only 'grad' system (1, 450, 450).
+    for B, D in [(100, 700), (5, 140), (10, 140), (90, 6), (4, 260), (10, 700), (1, 450)]:
         A = spd(B, D, 0.5, seed=B * 1000 + D)
         L, Lp = chol32(A), chol32_plain(A)
         torch.cuda.synchronize()
@@ -777,6 +810,161 @@ def phase_f32(slice64, vi64):
     return total
 
 
+def phase_online():
+    """f64 online EM at full width, batch 10: the anchor against the oracle,
+    every other rule and path on the card against the CPU, and a warm
+    iteration of each ``'diag'`` path timed by phase. Returns the launches
+    of the anchor fit and the card runs of (b), summed."""
+    from pgpfa_torch import FitConfig, fit, initialize_params, stevenson_surrogate
+    from pgpfa_torch.ops.cuda_kernels import chol32, ns_step
+
+    oracle = json.loads((REPO / "ORACLE_ONLINE_TRAJ.json").read_text())
+    ref = json.loads((REPO / "BASELINE_MEASURED_ONLINE_TRAJ.json").read_text())
+    ds = stevenson_surrogate(xdim=5, seed=2011)
+    init = initialize_params(5, ds.ydim, ds, seed=0)
+    idx = np.asarray(ref["batch_indices"])
+    n_iter, B = idx.shape
+    bin_ms = float(ds.binSize)
+    total = {"chol32": 0, "ns_step": 0}
+
+    def cfg(n, **kw):
+        return FitConfig(em_mode="online", batch_size=B, max_em_iter=n, **kw)
+
+    # (a) the anchor: 10 iterations of 'diag' on the reference's stream
+    fit(init, ds.Y, bin_ms, cfg(1), device="cuda", batch_indices=idx[:1])  # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = fit(init, ds.Y, bin_ms, cfg(n_iter), device="cuda", batch_indices=idx)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_counts()
+    by_shape = {k.__name__: dict(sorted(k.launches_by_shape.items())) for k in (chol32, ns_step)}
+    for k in total:
+        total[k] += launches[k]
+    pll = res.post_loglik.cpu().numpy()
+    d_or = np.abs(pll - np.asarray(oracle["post_loglik"][:n_iter]))
+    d_ref = np.abs(pll - np.asarray(ref["post_loglik"][:n_iter]))
+    log(f"online anchor: 'diag', Y {ds.Y.shape}, batch {B}, {n_iter} iterations on the "
+        f"reference's stream; launches {launches}; by (B, D): {by_shape}")
+    log(f"online anchor: post_loglik {pll.tolist()}")
+    log(f"online anchor: |port - oracle| {d_or.tolist()} (iteration 1 tolerance "
+        f"{ONLINE_PLL_TOL1:.0e}, every iteration {ONLINE_PLL_TOL:.1e}); max {d_or.max():.3e}")
+    log(f"online anchor: |port - original reference| {d_ref.tolist()}; max {d_ref.max():.3e} "
+        f"(the oracle's own: {oracle['maxabs_vs_reference']:.3e})")
+    log(f"online anchor: E-step Newton iterations (max over the batch) "
+        f"{res.newton_iters.amax(1).tolist()}; cd_niter {res.cd_niter.tolist()}; tau_niter "
+        f"{res.tau_niter.tolist()}")
+    log(f"online anchor: {wall:.3f} s for {n_iter} EM iterations = {wall / n_iter:.4f} "
+        f"s/EM-iteration")
+    if not (chol32.launches_by_shape[(B, 5 * ds.T)] > 0 and launches["ns_step"] > 0):
+        raise RuntimeError(f"online: chol32 must launch at ({B}, {5 * ds.T}) and ns_step at all")
+    if not (res.post_loglik.shape == (n_iter,) and np.all(np.isfinite(pll))
+            and all(bool(torch.isfinite(x).all()) for x in (res.C_seq, res.d_seq, res.tau_seq))):
+        raise RuntimeError("online anchor: values not finite or of the wrong shape")
+    if not (d_or[0] <= ONLINE_PLL_TOL1 and d_or.max() <= ONLINE_PLL_TOL):
+        raise RuntimeError("online anchor: post_loglik off the oracle")
+
+    # (b) every other path, 2 iterations on the card against the CPU
+    paths = ([dict(online_update=r) for r in ("hess", "grad", "balancingGamma",
+                                              "sequentialAverage", "fullyUpdateAll")]
+             + [dict(online_update=r, update_cd_jointly=False) for r in ("diag", "grad", "hess")]
+             + [dict(online_update=r, fully_update_tau=True) for r in ("balancingGamma", "diag")])
+    worst = {"pll1": 0.0, "param": 0.0, "pll2": 0.0}
+    for kw in paths:
+        reset_counts()
+        t0 = time.time()
+        g = fit(init, ds.Y, bin_ms, cfg(2, **kw), device="cuda", batch_indices=idx[:2])
+        torch.cuda.synchronize()
+        t_card = time.time() - t0
+        counts = read_counts()
+        n450 = chol32.launches_by_shape[(1, 5 * ds.ydim)]
+        for k in total:
+            total[k] += counts[k]
+        t0 = time.time()
+        c = fit(init, ds.Y, bin_ms, cfg(2, **kw), device="cpu", batch_indices=idx[:2])
+        t_cpu = time.time() - t0
+        pg, pc = g.post_loglik.cpu().numpy(), c.post_loglik.numpy()
+        d1 = abs(pg[0] - pc[0]) / abs(pc[0])
+        d2 = abs(pg[1] - pc[1])
+        dp = max(float((getattr(g, n).cpu() - getattr(c, n)).abs().max())
+                 for n in ("C_seq", "d_seq", "tau_seq"))
+        finite = all(bool(torch.isfinite(x).all()) for x in g)
+        for key, v in (("pll1", d1), ("param", dp), ("pll2", d2)):
+            worst[key] = max(worst[key], v)
+        log(f"online {kw}: card vs CPU post_loglik iteration 1 {d1:.3e} relative, iteration 2 "
+            f"{d2:.3e}; parameters {dp:.3e}; cd_niter card {g.cd_niter.tolist()} CPU "
+            f"{c.cd_niter.tolist()}, cd_grad_norm card {g.cd_grad_norm.tolist()}; launches "
+            f"{counts}, chol32 at (1, {5 * ds.ydim}) {n450}; {t_card:.3f} s card, {t_cpu:.3f} s CPU")
+        if not finite:
+            raise RuntimeError(f"online {kw}: values not finite")
+        if not (d1 <= ONLINE_DEV_PLL1_REL and dp <= ONLINE_DEV_PARAM_TOL
+                and d2 <= ONLINE_DEV_PLL2_TOL):
+            raise RuntimeError(f"online {kw}: the card disagrees with the CPU")
+        if kw == dict(online_update="grad", update_cd_jointly=False) and not n450 > 0:
+            raise RuntimeError("online C-only 'grad' must launch chol32 at (1, 450)")
+    log(f"online card vs CPU, worst over the paths: iteration-1 post_loglik {worst['pll1']:.3e} "
+        f"relative (tolerance {ONLINE_DEV_PLL1_REL:.0e}), parameters {worst['param']:.3e} "
+        f"(tolerance {ONLINE_DEV_PARAM_TOL:.0e}), iteration-2 post_loglik {worst['pll2']:.3e} "
+        f"(tolerance {ONLINE_DEV_PLL2_TOL:.0e})")
+
+    # (c) one warm iteration of each 'diag' path, timed by phase
+    for joint in (True, False):
+        online_phase_split(res, ds, idx[-1], n_iter - 1, joint)
+    return total, wall / n_iter
+
+
+def online_phase_split(res, ds, rows, n, joint):
+    """One warm online ``'diag'`` iteration ``n`` (0-based) on the minibatch
+    ``rows`` at a fit's final parameters, timed by phase: the E-step, the
+    (C, d) M-step and the tau M-step, as ``em.fit._online_mstep`` runs them."""
+    from pgpfa_torch import FitConfig
+    from pgpfa_torch.em.fit import _estep
+    from pgpfa_torch.learn.mstep_gp import learn_tau
+    from pgpfa_torch.learn.mstep_obs import c_only_cost, learn_cd_newton, update_d_closed_form
+    from pgpfa_torch.utils.optim import minimize_lbfgs
+
+    c = FitConfig(em_mode="online", online_update="diag", update_cd_jointly=joint)
+    T, bin_ms = ds.T, float(ds.binSize)
+    Y = torch.as_tensor(ds.Y, device="cuda")
+    Yb = Y.index_select(0, torch.as_tensor(rows, device="cuda"))
+    C, d, tau = res.C, res.d, res.tau
+    s = 1.0 / (n + 1.0) ** c.step_pow
+    torch.cuda.synchronize()
+    t = [time.time()]
+    inf, _, _, _ = _estep(C, d, tau, Yb, T, bin_ms, None, c)
+    torch.cuda.synchronize()
+    t.append(time.time())
+    means, vsms = inf.post_mean, inf.post_vsm
+    if joint:
+        theta = torch.cat([C, d[:, None]], 1)
+        q = theta.shape[1]
+        P = (torch.eye(q, dtype=C.dtype, device="cuda") / s**2).expand(ds.ydim, q, q)
+        cd = learn_cd_newton(Yb, means, vsms, C, d, prior_blocks=(P, theta),
+                             n_iter=c.cd_newton_iters)
+        detail = f"{int(cd.niter)} Newton steps accepted"
+    else:
+        newd = update_d_closed_form(Yb, means, vsms, C)
+        v0 = C.T.reshape(-1)
+        P = torch.eye(v0.shape[0], dtype=C.dtype, device="cuda") / s**2
+
+        def fun(v):
+            return c_only_cost(v, newd, Yb, means, vsms) + 0.5 * (v - v0) @ (P @ (v - v0))
+
+        r = minimize_lbfgs(fun, v0, maxiter=c.cd_maxiter, tol=c.cd_tol)
+        detail = f"{int(r.niter)} L-BFGS iterations, gradient {float(r.grad_norm):.2e}"
+    torch.cuda.synchronize()
+    t.append(time.time())
+    learn_tau(means, inf.post_vsm_gp, tau, bin_ms, prior=(tau, s), eps=c.eps_noise,
+              maxiter=c.tau_maxiter)
+    torch.cuda.synchronize()
+    t.append(time.time())
+    dt = np.diff(t)
+    log(f"online {'joint' if joint else 'C-only'} 'diag' phase split (one warm iteration, "
+        f"{float(t[-1] - t[0]):.4f} s): E-step {dt[0]:.4f} s ({int(inf.newton_iters.max())} "
+        f"Newton bodies), (C, d) M-step {dt[1]:.4f} s ({detail}), tau M-step {dt[2]:.4f} s")
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -786,6 +974,7 @@ def main():
     launches, *slice64 = phase_slice()
     launches_vi, *vi64 = phase_vi()
     launches_f32 = phase_f32(slice64, vi64)
+    launches_online, _ = phase_online()
 
     kernels = []
     for name, src, replaces, (B, D) in [
@@ -795,6 +984,7 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches[name], "launches_vi": launches_vi[name],
                         "launches_wide": launches_wide[name], "launches_f32": launches_f32[name],
+                        "launches_online": launches_online[name],
                         **rows[(name, B, D)],
                         "shapes": [r for (n, _, _), r in rows.items() if n == name]})
     print(json.dumps({"kernels": kernels}))

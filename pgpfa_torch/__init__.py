@@ -1,6 +1,7 @@
 """pgpfa_torch — Poisson Gaussian-Process Factor Analysis in PyTorch for NVIDIA Hopper.
 
-A port of the JAX package ``pgpfa`` (which stays the reference): batch EM
+A port of the JAX package ``pgpfa`` (which stays the reference): batch and
+online EM (all six online update rules, ``FitConfig(em_mode="online")``)
 with the Laplace or the dual variational E-step (dual-Newton or L-BFGS
 solver), with the f32 factorization and the f32 Newton-Schulz step of its
 mixed-precision solvers as hand-written CUDA kernels
@@ -29,7 +30,13 @@ from pgpfa_torch.convert import params_from_numpy, params_to_numpy  # noqa: E402
 from pgpfa_torch.data.init import initialize_params  # noqa: E402
 from pgpfa_torch.data.surrogate import stevenson_surrogate  # noqa: E402
 from pgpfa_torch.data.synthetic import dataset  # noqa: E402
-from pgpfa_torch.em.fit import FitConfig, FitResult, fit  # noqa: E402
+from pgpfa_torch.em.fit import (  # noqa: E402
+    ONLINE_UPDATE_METHODS,
+    FitConfig,
+    FitResult,
+    draw_batch_indices,
+    fit,
+)
 from pgpfa_torch.models.params import Params  # noqa: E402
 
 __all__ = [
@@ -39,6 +46,8 @@ __all__ = [
     "Params",
     "FitConfig",
     "FitResult",
+    "ONLINE_UPDATE_METHODS",
+    "draw_batch_indices",
     "fit",
     "params_from_numpy",
     "params_to_numpy",

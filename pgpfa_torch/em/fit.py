@@ -1,12 +1,18 @@
-"""Batch EM (PyTorch port of the batch branch of ``pgpfa/em/fit.py``).
+"""Batch and online EM (PyTorch port of ``pgpfa/em/fit.py``).
 
 :func:`fit` runs the EM loop in Python on one device: E-step = the
 trial-batched Laplace Newton solve or the dual variational solve, M-step =
-the per-neuron (C, d) Newton and the per-latent timescale Newton. EM
-iteration 0 starts the E-step cold (zero modes, or zero ``rho`` with the
-cold budget ``vi_maxiter``); each later iteration warm-starts from the
-secant extrapolation ``2 w_n - w_{n-1}`` of the two previous solutions, as
-``_fit_scan`` does.
+the per-neuron (C, d) Newton and the per-latent timescale Newton.
+
+Batch EM: iteration 0 starts the E-step cold (zero modes, or zero ``rho``
+with the cold budget ``vi_maxiter``); each later iteration warm-starts from
+the secant extrapolation ``2 w_n - w_{n-1}`` of the two previous solutions,
+as ``_fit_scan`` does.
+
+Online EM: each iteration runs a cold E-step on a minibatch of trials and
+one of the six update rules of ``_online_mstep``: three mix the full
+M-step's result into the old parameters, three (``'diag'``, ``'hess'``,
+``'grad'``) take a proximal or damped Newton step from them.
 """
 
 from __future__ import annotations
@@ -20,17 +26,37 @@ from pgpfa_torch.convert import params_from_numpy
 from pgpfa_torch.infer.laplace import InfRes, laplace_estep_from_arrays
 from pgpfa_torch.infer.variational import SOLVERS, vi_estep_from_arrays
 from pgpfa_torch.learn.mstep_gp import learn_tau
-from pgpfa_torch.learn.mstep_obs import learn_cd
-from pgpfa_torch.models.params import Params
+from pgpfa_torch.learn.mstep_obs import (
+    c_only_cost,
+    c_only_grad_hess,
+    cd_cost,
+    learn_cd,
+    learn_cd_newton,
+    neuron_grad_hess,
+    update_d_closed_form,
+)
+from pgpfa_torch.models.params import Params, pack_cd
+from pgpfa_torch.ops.blockmat import solve_psd_mixed
+from pgpfa_torch.utils.optim import minimize_lbfgs
 
 BATCH = "batch"
 ONLINE = "online"
+ONLINE_UPDATE_METHODS = (
+    "balancingGamma",
+    "sequentialAverage",
+    "fullyUpdateAll",
+    "hess",
+    "diag",
+    "grad",
+)
+_MIXING = {"balancingGamma", "sequentialAverage", "fullyUpdateAll"}
 
 
 @dataclasses.dataclass(frozen=True)
 class FitConfig:
-    """Fit configuration: the batch-EM fields of ``pgpfa.em.fit.FitConfig``
-    with the same names and defaults, except ``vi_solver``.
+    """Fit configuration: the batch- and online-EM fields of
+    ``pgpfa.em.fit.FitConfig`` with the same names and defaults, except
+    ``vi_solver``.
 
     ``vi_solver`` is ``'newton'`` (the default) or ``'lbfgs'``. The JAX
     package's default ``'auto'`` picks by trial count to avoid a crash of its
@@ -42,9 +68,16 @@ class FitConfig:
     inference_method: str = "laplace"
     em_mode: str = BATCH
     max_em_iter: int = 50
+    batch_size: int = 5  # online minibatch (trials)
+    online_update: str = "diag"  # one of ONLINE_UPDATE_METHODS
+    step_pow: float = 0.75  # online step size 1 / (n + 1)^step_pow
+    update_cd_jointly: bool = True  # online: joint (C, d), else closed-form d and C alone
+    fully_update_tau: bool = False  # online mixing rules: take the un-mixed tau
     newton_gtol: float = 1e-8
     newton_maxiter: int = 100
+    cd_maxiter: int = 500  # L-BFGS budget of the online C-only path
     cd_newton_iters: int = 8  # per-neuron Newton steps per M-step
+    cd_tol: float = 1e-9
     tau_maxiter: int = 6
     vi_maxiter: int = 150  # dual-solve budget of the cold first E-step
     vi_maxiter_warm: int = 100  # and of the warm-started ones after it
@@ -58,10 +91,10 @@ class FitConfig:
             raise ValueError(f"unknown inference_method {self.inference_method!r}")
         if self.vi_solver not in SOLVERS:
             raise ValueError(f"unknown vi_solver {self.vi_solver!r}; choose 'newton' or 'lbfgs'")
-        if self.em_mode == ONLINE:
-            raise NotImplementedError("online EM is not ported yet")
-        if self.em_mode != BATCH:
+        if self.em_mode not in (BATCH, ONLINE):
             raise ValueError(f"unknown em_mode {self.em_mode!r}")
+        if self.online_update not in ONLINE_UPDATE_METHODS:
+            raise ValueError(f"unknown online_update {self.online_update!r}")
         if self.time_block is not None:
             raise NotImplementedError("the banded long-trial path (time_block) is not ported yet")
 
@@ -82,7 +115,7 @@ class FitResult(NamedTuple):
     cd_grad_norm: torch.Tensor  # (iters,)
     cd_niter: torch.Tensor  # (iters,)
     tau_niter: torch.Tensor  # (iters, xdim)
-    newton_iters: torch.Tensor  # (iters, R) E-step Newton counts
+    newton_iters: torch.Tensor  # (iters, R) E-step Newton counts; online (iters, batch_size)
 
 
 def _estep(C, d, tau, Y, T, bin_size_ms, warm, cfg: FitConfig):
@@ -112,40 +145,106 @@ def _mstep_full(C, d, tau, Y, inf: InfRes, bin_size_ms, cfg: FitConfig):
     return cd, tr
 
 
-def fit(
-    init_params,
-    Y,
-    bin_size_ms: float,
-    config: Optional[FitConfig] = None,
-    device="cuda",
-    dtype=torch.float64,
-) -> FitResult:
-    """Run a batch EM fit (Laplace or dual variational E-step).
+def _online_mstep(n: int, C, d, tau, Yb, inf: InfRes, bin_size_ms, cfg: FitConfig, P, cumH):
+    """One online M-step after the E-step ``inf`` of the minibatch ``Yb``;
+    ``n`` is the 0-based EM iteration. Returns ``(C', d', tau', P', cumH',
+    cd_cost, tau_cost, full_tau, (cd_grad_norm, cd_niter, tau_niter))``.
 
-    Args:
-        init_params: dict ``{'C','d','tau'}`` of arrays, or :class:`Params`
-            (then its tensors' device and dtype are used as they are).
-        Y: spike counts ``(R, ydim, T)`` (array or tensor).
-        bin_size_ms: bin width in milliseconds.
-        config: :class:`FitConfig` (defaults to batch Laplace EM;
-            ``inference_method="variational"`` for the dual variational
-            E-step).
-        device, dtype: where and in what precision the fit runs:
-            ``torch.float64``, or ``torch.float32`` for the f32 fast mode
-            (the JAX package's ``PGPFA_X64=0``: the whole EM in f32, f32
-            factors used without refinement, f32-calibrated tolerances).
-            The default is the card, which runs the CUDA kernels;
-            there is no fallback to the CPU. Pass ``device="cpu"`` to run
-            the kernels' plain PyTorch versions on the CPU.
+    ``P`` is the prior precision and ``cumH`` the summed curvature of the
+    ``'grad'`` rule (carried, read by nothing), both from :func:`_init_prior`.
+    The step size is ``1 / (n + 1)^step_pow`` and the mixing weight of
+    ``'balancingGamma'`` ``n / (max_em_iter - 1)``.
     """
-    cfg = config or FitConfig()
-    p = init_params if isinstance(init_params, Params) else params_from_numpy(
-        init_params, device, dtype)
-    Y = torch.as_tensor(Y, dtype=p.C.dtype, device=p.C.device)
-    T = Y.shape[-1]
-    bin_size_ms = float(bin_size_ms)
+    method = cfg.online_update
+    gamma = n / max(cfg.max_em_iter - 1, 1)
+    stepsize = 1.0 / (n + 1.0) ** cfg.step_pow
 
-    C, d, tau = p.C, p.d, p.tau
+    if method in _MIXING:
+        cd, tr = _mstep_full(C, d, tau, Yb, inf, bin_size_ms, cfg)
+        mix = {"balancingGamma": gamma, "sequentialAverage": 0.5, "fullyUpdateAll": 0.0}[method]
+        newC = mix * C + (1.0 - mix) * cd.C
+        newd = mix * d + (1.0 - mix) * cd.d
+        newtau = mix * tau + (1.0 - mix) * tr.tau
+        details = (cd.grad_norm, cd.niter, tr.niter)
+        return newC, newd, newtau, P, cumH, cd.cost, tr.cost, tr.tau, details
+
+    tr = learn_tau(inf.post_mean, inf.post_vsm_gp, tau, bin_size_ms, prior=(tau, stepsize),
+                   eps=cfg.eps_noise, maxiter=cfg.tau_maxiter)
+    means, vsms = inf.post_mean, inf.post_vsm
+    one = torch.ones((), dtype=torch.int32, device=C.device)
+    if cfg.update_cd_jointly:
+        # per-neuron (q, q) blocks: the joint Hessian is block-diagonal per neuron
+        theta_old = torch.cat([C, d[:, None]], dim=1)
+        eye_q = torch.eye(theta_old.shape[1], dtype=C.dtype, device=C.device)
+        if method == "grad":  # one damped Newton step
+            g, Hb = neuron_grad_hess(theta_old, Yb, means, vsms)
+            theta_new = theta_old - stepsize * solve_psd_mixed(Hb + 1e-10 * eye_q, g)
+            newC, newd = theta_new[:, :-1], theta_new[:, -1]
+            cost = cd_cost(pack_cd(newC, newd), Yb, means, vsms)
+            cumH = cumH + Hb
+            cd_gnorm, cd_niter = g.abs().amax(), one
+        else:
+            if method == "diag":
+                P = (eye_q / stepsize**2).expand(P.shape)
+            else:  # 'hess': the accumulated exact curvature is the prior precision
+                P = neuron_grad_hess(theta_old, Yb, means, vsms)[1] + P
+            cd = learn_cd_newton(Yb, means, vsms, C, d, prior_blocks=(P, theta_old),
+                                 n_iter=cfg.cd_newton_iters)
+            newC, newd, cost = cd.C, cd.d, cd.cost
+            cd_gnorm, cd_niter = cd.grad_norm, cd.niter
+    else:
+        # closed-form d, then C alone in vC = C.T.reshape(-1) order
+        newd = update_d_closed_form(Yb, means, vsms, C)
+        vC_old = C.T.reshape(-1)
+        eye = torch.eye(vC_old.shape[0], dtype=C.dtype, device=C.device)
+        if method == "grad":
+            g, H = c_only_grad_hess(vC_old, newd, Yb, means, vsms)
+            vC_new = vC_old - stepsize * solve_psd_mixed(H + 1e-10 * eye, g)
+            cumH = cumH + H
+            cd_gnorm, cd_niter = g.abs().amax(), one
+        else:
+            if method == "diag":
+                P = eye / stepsize**2
+            else:
+                P = c_only_grad_hess(vC_old, newd, Yb, means, vsms)[1] + P
+
+            def fun(v):
+                dv = v - vC_old
+                return c_only_cost(v, newd, Yb, means, vsms) + 0.5 * dv @ (P @ dv)
+
+            res = minimize_lbfgs(fun, vC_old, maxiter=cfg.cd_maxiter, tol=cfg.cd_tol)
+            vC_new, cd_gnorm, cd_niter = res.x, res.grad_norm, res.niter
+        newC = vC_new.reshape(C.shape[1], C.shape[0]).T
+        cost = c_only_cost(vC_new, newd, Yb, means, vsms)  # without the penalty
+
+    details = (cd_gnorm, cd_niter, tr.niter)
+    return newC, newd, tr.tau, P, cumH, cost, tr.cost, tr.tau, details
+
+
+def _init_prior(cfg: FitConfig, xdim: int, ydim: int, like: torch.Tensor) -> torch.Tensor:
+    """Initial prior precision (and summed curvature): identity blocks
+    ``(ydim, xdim+1, xdim+1)`` for the joint (C, d) update, a dense
+    ``eye(xdim*ydim)`` for the C-only one."""
+    if cfg.update_cd_jointly:
+        q = xdim + 1
+        return torch.eye(q, dtype=like.dtype, device=like.device).expand(ydim, q, q)
+    return torch.eye(xdim * ydim, dtype=like.dtype, device=like.device)
+
+
+def draw_batch_indices(R: int, batch_size: int, n_iter: int, seed: int = 0) -> torch.Tensor:
+    """The online minibatch stream ``(n_iter, batch_size)`` that :func:`fit`
+    draws without ``batch_indices``: ``batch_size`` distinct trials per
+    iteration, each row the head of one ``torch.randperm(R)`` from a CPU
+    generator seeded with ``seed``, so the stream is the same on every
+    device. (The JAX package draws with ``jax.random.choice``; its streams
+    differ from these.)"""
+    if not 0 < batch_size <= R:
+        raise ValueError(f"batch_size {batch_size} must be in [1, {R}]")
+    gen = torch.Generator().manual_seed(seed)
+    return torch.stack([torch.randperm(R, generator=gen)[:batch_size] for _ in range(n_iter)])
+
+
+def _fit_batch(C, d, tau, Y, T, bin_size_ms, cfg: FitConfig):
     rows = []
     warm = warm_prev = None
     for n in range(cfg.max_em_iter):
@@ -158,11 +257,81 @@ def fit(
         warm = warm_new
         rows.append((cd.C, cd.d, tr.tau, pll, vlb, cd.cost, tr.cost,
                      cd.grad_norm, cd.niter, tr.niter, inf.newton_iters))
+    return rows
 
+
+def _fit_online(C, d, tau, Y, T, bin_size_ms, cfg: FitConfig, seed: int, batch_indices):
+    R, ydim, _ = Y.shape
+    if batch_indices is None:
+        idx = draw_batch_indices(R, cfg.batch_size, cfg.max_em_iter, seed)
+    else:
+        idx = torch.stack([torch.as_tensor(batch_indices[n]).reshape(-1).to(torch.int64)
+                           for n in range(cfg.max_em_iter)])
+        if not bool(((idx >= 0) & (idx < R)).all()):
+            raise ValueError(f"batch_indices must lie in [0, {R})")
+    idx = idx.to(Y.device)
+    P = cumH = _init_prior(cfg, C.shape[1], ydim, C)
+    rows = []
+    for n in range(cfg.max_em_iter):
+        Yb = Y.index_select(0, idx[n])
+        # cold E-step: a new minibatch
+        inf, pll, vlb, _ = _estep(C, d, tau, Yb, T, bin_size_ms, None, cfg)
+        C, d, newtau, P, cumH, cost, tcost, full_tau, det = _online_mstep(
+            n, C, d, tau, Yb, inf, bin_size_ms, cfg, P, cumH)
+        tau = full_tau if cfg.fully_update_tau else newtau
+        rows.append((C, d, tau, pll, vlb, cost, tcost, *det, inf.newton_iters))
+    return rows
+
+
+def fit(
+    init_params,
+    Y,
+    bin_size_ms: float,
+    config: Optional[FitConfig] = None,
+    device="cuda",
+    dtype=torch.float64,
+    seed: int = 0,
+    batch_indices=None,
+) -> FitResult:
+    """Run a batch or online EM fit (Laplace or dual variational E-step).
+
+    Args:
+        init_params: dict ``{'C','d','tau'}`` of arrays, or :class:`Params`
+            (then its tensors' device and dtype are used as they are).
+        Y: spike counts ``(R, ydim, T)`` (array or tensor).
+        bin_size_ms: bin width in milliseconds.
+        config: :class:`FitConfig` (defaults to batch Laplace EM;
+            ``inference_method="variational"`` for the dual variational
+            E-step, ``em_mode="online"`` for online EM).
+        device, dtype: where and in what precision the fit runs:
+            ``torch.float64``, or ``torch.float32`` for the f32 fast mode
+            (the JAX package's ``PGPFA_X64=0``: the whole EM in f32, f32
+            factors used without refinement, f32-calibrated tolerances).
+            The default is the card, which runs the CUDA kernels;
+            there is no fallback to the CPU. Pass ``device="cpu"`` to run
+            the kernels' plain PyTorch versions on the CPU.
+        seed: online EM: the seed of the minibatch stream
+            (:func:`draw_batch_indices`; its draws differ from the JAX
+            package's ``jax.random`` ones).
+        batch_indices: online EM: the minibatch of each iteration instead of
+            drawn ones; iteration ``n`` uses the trials ``batch_indices[n]``,
+            as ``pgpfa.em.fit.fit_loop(batch_indices=...)``.
+    """
+    cfg = config or FitConfig()
+    p = init_params if isinstance(init_params, Params) else params_from_numpy(
+        init_params, device, dtype)
+    Y = torch.as_tensor(Y, dtype=p.C.dtype, device=p.C.device)
+    T = Y.shape[-1]
+    bin_size_ms = float(bin_size_ms)
+
+    if cfg.em_mode == BATCH:
+        rows = _fit_batch(p.C, p.d, p.tau, Y, T, bin_size_ms, cfg)
+    else:
+        rows = _fit_online(p.C, p.d, p.tau, Y, T, bin_size_ms, cfg, seed, batch_indices)
     seq = [torch.stack(col) for col in zip(*rows)]
     C_seq, d_seq, tau_seq, pll, vlb, cdc, tc, cgn, cni, tni, nwi = seq
     return FitResult(
-        C=C, d=d, tau=tau,
+        C=C_seq[-1], d=d_seq[-1], tau=tau_seq[-1],
         C_seq=C_seq, d_seq=d_seq, tau_seq=tau_seq,
         post_loglik=pll, var_lower_bound=vlb, cd_cost=cdc, tau_cost=tc,
         cd_grad_norm=cgn, cd_niter=cni, tau_niter=tni, newton_iters=nwi,

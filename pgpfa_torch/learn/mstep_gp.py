@@ -46,6 +46,15 @@ def tau_cost(p, pauto_k, num_trials, dif_sq, eps: float = 0.001) -> torch.Tensor
     return 0.5 * num_trials * logdet + 0.5 * trace(Kinv_ps)
 
 
+def tau_cost_with_prior(p, pauto_k, num_trials, dif_sq, bin_size_ms, old_tau, stepsize,
+                        eps: float = 0.001) -> torch.Tensor:
+    """:func:`tau_cost` plus the online-EM proximal penalty
+    ``0.5 (tau - old_tau)^2 / stepsize^2``, with tau in seconds."""
+    tau = log_gamma_to_tau(p, bin_size_ms)
+    reg = 0.5 * (tau - old_tau) ** 2 / stepsize**2
+    return tau_cost(p, pauto_k, num_trials, dif_sq, eps) + reg
+
+
 def _tau_derivatives(p, pauto_k, num_trials, dif_sq, eps):
     """Analytic ``(grad, curvature)`` of :func:`tau_cost`, batched over ``p``.
 
@@ -85,9 +94,12 @@ def learn_tau(
     eps: float = 0.001,
     maxiter: int = 12,
 ) -> TauResult:
-    """Optimize every latent's timescale with ``maxiter`` guarded Newton steps."""
-    if prior is not None:
-        raise NotImplementedError("learn_tau: the online-EM prior is not ported yet")
+    """Optimize every latent's timescale with ``maxiter`` guarded Newton steps.
+
+    ``prior`` is an optional ``(old_tau (xdim,), stepsize)`` proximal penalty
+    (online EM, :func:`tau_cost_with_prior`); its gradient and curvature in
+    ``p`` are added analytically (``dtau/dp = -tau/2``).
+    """
     precomp = pauto_sum(means, vsm_gps)
     num_trials = float(means.shape[0])
     T = precomp.shape[-1]
@@ -96,11 +108,26 @@ def learn_tau(
     xdim = p0.shape[0]
     lane = torch.arange(xdim, device=p0.device)
 
-    def cost_fn(k, p):
-        return tau_cost(p, precomp[k], num_trials, dif_sq, eps)
+    if prior is None:
+        def cost_fn(k, p):
+            return tau_cost(p, precomp[k], num_trials, dif_sq, eps)
 
-    def gh_fn(k, p):
-        return _tau_derivatives(p, precomp[k], num_trials, dif_sq, eps)
+        def gh_fn(k, p):
+            return _tau_derivatives(p, precomp[k], num_trials, dif_sq, eps)
+    else:
+        old_tau, stepsize = prior
+        old = old_tau.reshape(-1)
+
+        def cost_fn(k, p):
+            return tau_cost_with_prior(p, precomp[k], num_trials, dif_sq, bin_size_ms, old[k],
+                                       stepsize, eps)
+
+        def gh_fn(k, p):
+            g, h = _tau_derivatives(p, precomp[k], num_trials, dif_sq, eps)
+            tau = log_gamma_to_tau(p, bin_size_ms)
+            g_reg = (tau - old[k]) / stepsize**2 * (-0.5 * tau)
+            h_reg = (0.25 * tau**2 + (tau - old[k]) * 0.25 * tau) / stepsize**2
+            return g + g_reg, h + h_reg
 
     x, f, acc = _run_tau_newton(p0, lane, cost_fn, gh_fn, maxiter)
     return TauResult(tau=log_gamma_to_tau(x, bin_size_ms), cost=f, niter=acc)

@@ -10,7 +10,10 @@ Expected-complete-data Poisson cost::
 The cost separates per neuron, so the M-step is ``ydim`` independent
 ``(xdim+1)``-parameter Newton problems solved together with a fixed number of
 guarded steps; their ``(ydim, q, q)`` systems go through the f32 ``chol32``
-factorization with f64 refinement.
+factorization with f64 refinement. Online EM adds a proximal penalty centered
+at the old parameters: per-neuron blocks on the Newton path, a dense matrix
+over the packed vector on the L-BFGS path, and the C-only update with a
+closed-form ``d``.
 """
 
 from __future__ import annotations
@@ -19,8 +22,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from pgpfa_torch.models.params import unpack_cd
+from pgpfa_torch.models.params import pack_cd, unpack_cd
 from pgpfa_torch.ops.blockmat import solve_psd_mixed
+from pgpfa_torch.utils.optim import minimize_lbfgs
 
 
 class CdResult(NamedTuple):
@@ -46,86 +50,135 @@ def cd_cost(vec: torch.Tensor, Y: torch.Tensor, means: torch.Tensor,
     return -(Y * hh - rate).sum() / R
 
 
-def learn_cd_newton(Y, means, vsms, C0, d0, n_iter: int = 10) -> CdResult:
-    """All-neurons batched Newton for the (C, d) M-step, in f64 or f32.
+def cd_cost_with_prior(vec, Y, means, vsms, center, inv_prior_cov) -> torch.Tensor:
+    """:func:`cd_cost` plus the proximal penalty ``0.5 (v - v0)^T P (v - v0)``
+    centered at the old packed parameters, ``P`` positive semidefinite."""
+    dv = vec - center
+    return cd_cost(vec, Y, means, vsms) + 0.5 * dv @ (inv_prior_cov @ dv)
 
-    Moment tensors over the flattened sample axis ``s = R*T`` (``m``, ``V``,
-    ``m (x) m``, ``m (x) V``, ``V (x) V``) are formed once, so every
-    per-iteration statistic is one ``(ydim, s) @ (s, x^k)`` matmul against the
-    current rates. Above xdim 8 the ``x^4`` tensor is never formed: the
-    Hessian's second-moment block is the weighted outer-product sum of
-    ``u = m + V c`` per (neuron, sample). A rejected step shrinks that
-    neuron's damping 4x for the retry; an accepted one resets it. In f32 a
-    candidate within ``2e-6 (1 + |f|)`` of the cost is accepted (the cost
-    cannot resolve smaller gains), and the carried cost stays the minimum.
-    ``niter`` counts the iterations in which at least one neuron accepted.
-    """
-    R, ydim, T = Y.shape
-    xdim = C0.shape[1]
-    q = xdim + 1
-    s = R * T
-    contraction = xdim > 8
 
-    M2 = means.transpose(1, 2).reshape(s, xdim)  # (s, x)
-    Vf = vsms.reshape(s, xdim * xdim)  # (s, x^2)
-    if contraction:
-        V3 = vsms.reshape(s, xdim, xdim)
-    else:
-        P2 = (M2[:, :, None] * M2[:, None, :]).reshape(s, xdim * xdim)  # m (x) m
-        MV = (M2[:, :, None] * Vf[:, None, :]).reshape(s, xdim**3)  # m (x) V
-        VV = (Vf[:, :, None] * Vf[:, None, :]).reshape(s, xdim**4)  # V (x) V
-    Yf = Y.transpose(0, 1).reshape(ydim, s)  # (ydim, s)
-    Ym = Yf @ M2  # (ydim, x): sum_s y m
-    Ysum = Yf.sum(1)  # (ydim,)
+class _CdMoments:
+    """Posterior-moment tensors of one E-step over the flattened sample axis
+    ``s = R*T`` (``m``, ``V``, ``m (x) m``, ``m (x) V``, ``V (x) V``), formed
+    once, so every per-neuron statistic of the (C, d) cost is one
+    ``(ydim, s) @ (s, x^k)`` matmul against the current rates. Above xdim 8
+    the ``x^4`` tensor is never formed: the Hessian's second-moment block is
+    the weighted outer-product sum of ``u = m + V c`` per (neuron, sample).
+    ``theta (ydim, q)`` holds each neuron's ``[c, d]``, ``q = xdim + 1``."""
 
-    theta0 = torch.cat([C0, d0[:, None]], dim=1)  # (ydim, q)
+    def __init__(self, Y, means, vsms):
+        self.R, self.ydim, T = Y.shape
+        self.xdim = xdim = means.shape[1]
+        s = self.R * T
+        self.contraction = xdim > 8
+        self.M2 = means.transpose(1, 2).reshape(s, xdim)  # (s, x)
+        self.Vf = vsms.reshape(s, xdim * xdim)  # (s, x^2)
+        if self.contraction:
+            self.V3 = vsms.reshape(s, xdim, xdim)
+        else:
+            M2, Vf = self.M2, self.Vf
+            self.P2 = (M2[:, :, None] * M2[:, None, :]).reshape(s, xdim * xdim)  # m (x) m
+            self.MV = (M2[:, :, None] * Vf[:, None, :]).reshape(s, xdim**3)  # m (x) V
+            self.VV = (Vf[:, :, None] * Vf[:, None, :]).reshape(s, xdim**4)  # V (x) V
+        Yf = Y.transpose(0, 1).reshape(self.ydim, s)  # (ydim, s)
+        self.Ym = Yf @ self.M2  # (ydim, x): sum_s y m
+        self.Ysum = Yf.sum(1)  # (ydim,)
 
-    def rates(theta):
+    def rates(self, theta):
         C, dn = theta[:, :-1], theta[:, -1]
-        O = (C[:, :, None] * C[:, None, :]).reshape(ydim, xdim * xdim)
-        eta = C @ M2.T + 0.5 * (O @ Vf.T) + dn[:, None]  # (ydim, s)
+        O = (C[:, :, None] * C[:, None, :]).reshape(self.ydim, self.xdim**2)
+        eta = C @ self.M2.T + 0.5 * (O @ self.Vf.T) + dn[:, None]  # (ydim, s)
         return torch.exp(eta)
 
-    def cost_from(theta, rate):
+    def cost(self, theta, rate):
         """Per-neuron costs ``(ydim,)``; the ``y hh`` sum is linear in theta."""
         C, dn = theta[:, :-1], theta[:, -1]
-        y_hh = (C * Ym).sum(1) + dn * Ysum
-        return -(y_hh - rate.sum(1)) / R
+        y_hh = (C * self.Ym).sum(1) + dn * self.Ysum
+        return -(y_hh - rate.sum(1)) / self.R
 
-    def grad_hess(theta, rate):
+    def grad_hess(self, theta, rate):
+        """Per-neuron gradients ``(ydim, q)`` and Hessians ``(ydim, q, q)``."""
+        R, ydim, xdim = self.R, self.ydim, self.xdim
         C = theta[:, :-1]
-        W = (rate @ Vf).reshape(ydim, xdim, xdim)  # sum rate * V
+        W = (rate @ self.Vf).reshape(ydim, xdim, xdim)  # sum rate * V
         rsum = rate.sum(1)
-        if contraction:
+        if self.contraction:
             # U (ydim, s, x): ~50 MB f64 at the Stevenson shape
-            U = M2 + torch.einsum("skl,nl->nsk", V3, C)
+            U = self.M2 + torch.einsum("skl,nl->nsk", self.V3, C)
             RU = rate[:, :, None] * U
             A1Wc = RU.sum(1)  # sum rate * u
             H_cc = (RU.transpose(1, 2) @ U + W) / R  # (sum rate * u u^T + W) / R
         else:
-            A1 = rate @ M2  # sum rate * m
+            A1 = rate @ self.M2  # sum rate * m
             Wc = torch.einsum("nkl,nl->nk", W, C)  # sum rate * (V c)
             A1Wc = A1 + Wc
-            S_mm = (rate @ P2).reshape(ydim, xdim, xdim)
-            S_mv = (rate @ MV).reshape(ydim, xdim, xdim, xdim)  # [n,k,l,j]: m_k V_lj
+            S_mm = (rate @ self.P2).reshape(ydim, xdim, xdim)
+            S_mv = (rate @ self.MV).reshape(ydim, xdim, xdim, xdim)  # [n,k,l,j]: m_k V_lj
             T2 = torch.einsum("nklj,nj->nkl", S_mv, C)  # sum rate * m (Vc)^T
-            S_vv = (rate @ VV).reshape(ydim, xdim, xdim, xdim, xdim)  # [n,k,i,l,j]
+            S_vv = (rate @ self.VV).reshape(ydim, xdim, xdim, xdim, xdim)  # [n,k,i,l,j]
             T4 = torch.einsum("nkilj,ni,nj->nkl", S_vv, C, C)
             H_cc = (S_mm + T2 + T2.transpose(1, 2) + T4 + W) / R
 
-        g_c = -(Ym - A1Wc) / R
-        g_d = -(Ysum - rsum) / R
+        g_c = -(self.Ym - A1Wc) / R
+        g_d = -(self.Ysum - rsum) / R
         g = torch.cat([g_c, g_d[:, None]], dim=1)  # (ydim, q)
         H_cd = A1Wc / R
         H_dd = rsum / R
         top = torch.cat([H_cc, H_cd[:, :, None]], dim=2)
         bot = torch.cat([H_cd, H_dd[:, None]], dim=1)[:, None, :]
-        return g, torch.cat([top, bot], dim=1)  # (ydim, q, q)
+        return g, torch.cat([top, bot], dim=1)
+
+
+def neuron_grad_hess(theta, Y, means, vsms):
+    """Analytic gradients ``(ydim, q)`` and Hessians ``(ydim, q, q)`` of every
+    neuron's share of :func:`cd_cost` at ``theta (ydim, q)``, rows
+    ``[C[n], d[n]]``: the exact Hessian of the cost is block-diagonal per
+    neuron."""
+    mom = _CdMoments(Y, means, vsms)
+    return mom.grad_hess(theta, mom.rates(theta))
+
+
+def learn_cd_newton(Y, means, vsms, C0, d0,
+                    prior_blocks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    n_iter: int = 10) -> CdResult:
+    """All-neurons batched Newton for the (C, d) M-step, in f64 or f32, on
+    the moment tensors of :class:`_CdMoments`.
+
+    A rejected step shrinks that neuron's damping 4x for the retry; an
+    accepted one resets it. In f32 a candidate within ``2e-6 (1 + |f|)`` of
+    the cost is accepted (the cost cannot resolve smaller gains), and the
+    carried cost stays the minimum. ``niter`` counts the iterations in which
+    at least one neuron accepted.
+
+    ``prior_blocks`` is an optional ``(P (ydim, q, q), center (ydim, q))``
+    per-neuron penalty ``0.5 (th - c)^T P_n (th - c)`` (online EM); it enters
+    the cost, the gradient and the Hessian, and the reported cost includes
+    it.
+    """
+    ydim, xdim = C0.shape
+    q = xdim + 1
+    mom = _CdMoments(Y, means, vsms)
+
+    def cost_from(theta, rate):
+        f = mom.cost(theta, rate)
+        if prior_blocks is not None:
+            Pb, center = prior_blocks
+            dv = theta - center
+            f = f + 0.5 * torch.einsum("nq,nqp,np->n", dv, Pb, dv)
+        return f
+
+    def grad_hess(theta, rate):
+        g, H = mom.grad_hess(theta, rate)
+        if prior_blocks is not None:
+            Pb, center = prior_blocks
+            g = g + torch.einsum("nqp,np->nq", Pb, theta - center)
+            H = H + Pb
+        return g, H
 
     slack_coef = 0.0 if C0.dtype == torch.float64 else 2e-6
     eye_q = torch.eye(q, dtype=C0.dtype, device=C0.device)
-    th = theta0
-    rate = rates(th)
+    th = torch.cat([C0, d0[:, None]], dim=1)  # (ydim, q)
+    rate = mom.rates(th)
     f = cost_from(th, rate)
     tdamp = torch.ones(ydim, dtype=C0.dtype, device=C0.device)
     acc = torch.zeros((), dtype=torch.int32, device=C0.device)
@@ -133,7 +186,7 @@ def learn_cd_newton(Y, means, vsms, C0, d0, n_iter: int = 10) -> CdResult:
         g, H = grad_hess(th, rate)
         step = solve_psd_mixed(H + 1e-10 * eye_q, g)
         cand = th - tdamp[:, None] * step
-        rate_c = rates(cand)
+        rate_c = mom.rates(cand)
         f_c = cost_from(cand, rate_c)
         f_c = torch.where(torch.isfinite(f_c), f_c, torch.inf)
         better = f_c < f + slack_coef * (1.0 + f.abs())
@@ -149,11 +202,59 @@ def learn_cd_newton(Y, means, vsms, C0, d0, n_iter: int = 10) -> CdResult:
 
 def learn_cd(Y, means, vsms, C0, d0,
              prior: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-             maxiter: int = 500, method: str = "newton") -> CdResult:
-    """Optimize (C, d) from the current posterior moments: the per-neuron
-    batched Newton with ``min(maxiter, 10)`` steps."""
-    if method != "newton" or prior is not None:
-        raise NotImplementedError(
-            "learn_cd: only the unregularized Newton path is ported "
-            "(L-BFGS and the online-EM prior come later)")
-    return learn_cd_newton(Y, means, vsms, C0, d0, n_iter=min(maxiter, 10))
+             maxiter: int = 500, tol: float = 1e-9, method: str = "newton") -> CdResult:
+    """Optimize (C, d) from the current posterior moments.
+
+    Without a prior, ``method='newton'`` runs the per-neuron batched Newton
+    with ``min(maxiter, 10)`` steps. ``method='lbfgs'`` or a dense ``prior``
+    ``(inv_prior_cov, center_vec)`` over the packed vector (:func:`pack_cd`
+    order) runs :func:`minimize_lbfgs` to gradient ``tol`` over that vector.
+    """
+    if method not in ("newton", "lbfgs"):
+        raise ValueError(f"unknown method {method!r}")
+    if method == "newton" and prior is None:
+        return learn_cd_newton(Y, means, vsms, C0, d0, n_iter=min(maxiter, 10))
+    if prior is None:
+        def fun(v):
+            return cd_cost(v, Y, means, vsms)
+    else:
+        P, center = prior
+
+        def fun(v):
+            return cd_cost_with_prior(v, Y, means, vsms, center, P)
+    res = minimize_lbfgs(fun, pack_cd(C0, d0), maxiter=maxiter, tol=tol)
+    C, d = unpack_cd(res.x, C0.shape[1], C0.shape[0])
+    return CdResult(C=C, d=d, cost=res.fun, grad_norm=res.grad_norm, niter=res.niter)
+
+
+def update_d_closed_form(Y, means, vsms, C) -> torch.Tensor:
+    """Closed-form ``d`` given ``C`` and the posterior moments: the mean rate
+    matched to the mean count, ``d = log(mean Y + 1e-5) - log(mean exp(Cm +
+    q/2))``. This is the JAX package's consistent form (the original
+    reference applies the log and the normalization in another order)."""
+    mean_y = Y.mean((0, 2)) + 1e-5
+    hh = torch.einsum("nk,rkt->rnt", C, means)
+    quad = torch.einsum("nk,rtkl,nl->rnt", C, vsms, C)
+    mean_rate = torch.exp(hh + 0.5 * quad).mean((0, 2))
+    return torch.log(mean_y) - torch.log(mean_rate)
+
+
+def c_only_cost(vC, d, Y, means, vsms) -> torch.Tensor:
+    """:func:`cd_cost` as a function of ``vC = C.T.reshape(-1)``
+    (latent-major) with ``d`` fixed."""
+    return cd_cost(torch.cat([vC, d]), Y, means, vsms)
+
+
+def c_only_grad_hess(vC, d, Y, means, vsms):
+    """Gradient ``(xdim*ydim,)`` and dense Hessian ``(xdim*ydim, xdim*ydim)``
+    of :func:`c_only_cost` in ``vC`` order. With ``d`` fixed the cost
+    separates per neuron, so the Hessian is the per-neuron ``H_cc`` blocks
+    scattered to ``H[k*ydim + n, l*ydim + n] = H_cc[n, k, l]``, zero
+    elsewhere."""
+    ydim = d.shape[0]
+    xdim = vC.shape[0] // ydim
+    theta = torch.cat([vC.reshape(xdim, ydim).T, d[:, None]], dim=1)
+    g, H = neuron_grad_hess(theta, Y, means, vsms)
+    blocks = torch.diag_embed(H[:, :xdim, :xdim].permute(1, 2, 0))  # [k, l, n, n]
+    dense = blocks.permute(0, 2, 1, 3).reshape(xdim * ydim, xdim * ydim)
+    return g[:, :xdim].T.reshape(-1), dense

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the device time of the port's fit goes, on one NVIDIA GPU.
 
-    python3 pgpfa_torch/tools/profile_fit.py [laplace|variational] [f64|f32]
+    python3 pgpfa_torch/tools/profile_fit.py [laplace|variational|online] [f64|f32]
 
 1. fit, under ``torch.profiler``, on the Stevenson-shaped surrogate (100
    trials x 90 neurons x 140 bins, xdim 5, Poisson-PCA init with seed 0),
@@ -9,7 +9,9 @@
    one-iteration warm-up fit. ``variational``: one warm dual-Newton EM
    iteration (E-step, (C, d) and tau M-steps) at the parameters of a
    2-iteration variational fit, its dual warm-started from the solution at
-   the parameters one M-step earlier. Prints the wall time (profiler on),
+   the parameters one M-step earlier. ``online``: a 2-iteration online
+   ``'diag'`` fit at batch 10 (minibatches drawn with seed 0) after a
+   one-iteration warm-up fit. Prints the wall time (profiler on),
    the summed device time of every kernel and copy, so the device's busy
    and idle share of the wall, the device time by the ATen op that
    launched it (the hand-written kernels, which no ATen op launches, by
@@ -86,10 +88,23 @@ def variational_run(ds, init, dtype):
     return run, "1 warm variational EM iteration"
 
 
+def online_run(ds, init, dtype):
+    """Warm-up online fit; returns the profiled run and its label."""
+    def cfg(n):
+        return FitConfig(em_mode="online", online_update="diag", batch_size=10, max_em_iter=n)
+
+    fit(init, ds.Y, ds.binSize, cfg(1), device="cuda", dtype=dtype)
+
+    def run():
+        fit(init, ds.Y, ds.binSize, cfg(2), device="cuda", dtype=dtype)
+    return run, "2 online 'diag' EM iterations, batch 10"
+
+
 def profile_fit(method, dtype):
     ds = stevenson_surrogate(xdim=5, seed=2011)
     init = initialize_params(5, ds.ydim, ds, seed=0)
-    run, label = {"laplace": laplace_run, "variational": variational_run}[method](ds, init, dtype)
+    runs = {"laplace": laplace_run, "variational": variational_run, "online": online_run}
+    run, label = runs[method](ds, init, dtype)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -162,8 +177,9 @@ def profile_ns_step():
 def main():
     method = sys.argv[1] if len(sys.argv) > 1 else "laplace"
     precision = sys.argv[2] if len(sys.argv) > 2 else "f64"
-    if method not in ("laplace", "variational"):
-        raise SystemExit(f"profile_fit: unknown method {method!r}; choose laplace or variational")
+    if method not in ("laplace", "variational", "online"):
+        raise SystemExit(f"profile_fit: unknown method {method!r}; choose laplace, variational "
+                         "or online")
     dtypes = {"f64": torch.float64, "f32": torch.float32}
     if precision not in dtypes:
         raise SystemExit(f"profile_fit: unknown precision {precision!r}; choose f64 or f32")

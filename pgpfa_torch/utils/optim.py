@@ -1,6 +1,7 @@
-"""Fixed-iteration L-BFGS batched over independent lanes, and the chunked
-driver with early exit (PyTorch port of the parts of ``pgpfa/utils/optim.py``
-the variational E-step uses).
+"""Minimizers (PyTorch port of ``pgpfa/utils/optim.py``): the converging
+L-BFGS of the online (C, d) M-step (:func:`minimize_lbfgs`), and the
+fixed-iteration L-BFGS batched over independent lanes with its chunked
+driver, which the variational E-step uses.
 
 Lanes lead every tensor: a carry holds ``R`` independent problems (one per
 trial), every inner product is a per-lane sum and every accept test an
@@ -12,11 +13,133 @@ serves all lanes.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
 from pgpfa_torch.infer.laplace import _where
+
+
+class MinimizeResult(NamedTuple):
+    x: torch.Tensor
+    fun: torch.Tensor
+    grad_norm: torch.Tensor
+    niter: torch.Tensor
+
+
+def minimize_lbfgs(fun: Callable[[torch.Tensor], torch.Tensor], x0: torch.Tensor,
+                   maxiter: int = 500, tol: float = 1e-10,
+                   memory_size: int = 15) -> MinimizeResult:
+    """Minimize a smooth scalar function of one tensor with L-BFGS until the
+    gradient's infinity norm is at most ``tol`` (at least one iteration, at
+    most ``maxiter``, stopping early on a non-finite gradient), as the JAX
+    package's optax loop does.
+
+    The line search (:func:`_line_search`) accepts a step on the strong Wolfe
+    conditions with optax's approximate decrease ``f <= f0 + 1e-6 |f0|`` in
+    place of the Armijo test, so near the optimum, where cost differences
+    fall below the cost's rounding, it decides on the directional derivative
+    and still converges. Its steps differ from optax's zoom search, so the
+    iterates and the iteration counts differ; the converged points agree.
+    Every iteration reads the gradient norm and the line search's tests back
+    to the host.
+
+    Returns the final point, ``fun`` there, the infinity norm of its
+    gradient there and the iteration count.
+    """
+    x = x0.detach().clone()
+    f, g = _fun_grad(fun, x)
+    S, Yk = [], []
+    niter = 0
+    while niter == 0 or niter < maxiter:
+        gnorm = float(g.abs().max())
+        if niter > 0 and not gnorm > tol:  # also stops on a NaN
+            break
+        d = -_two_loop(g, S, Yk)
+        slope = float(d @ g)
+        found = None
+        if S and slope < 0:
+            found = _line_search(fun, x, float(f), d, slope, 1.0)
+        if found is None:  # no memory, no descent from it, or no step along it
+            S, Yk = [], []
+            d = -g
+            t0 = min(1.0, 1.0 / max(float(g.abs().sum()), 1e-300))
+            found = _line_search(fun, x, float(f), d, -float(g @ g), t0)
+        niter += 1
+        if found is None:  # no acceptable step even along -g: stalled
+            break
+        t, f_new, g_new = found
+        s, y = t * d, g_new - g
+        sy = float(s @ y)
+        if sy > 1e-13 * float(torch.linalg.vector_norm(s) * torch.linalg.vector_norm(y)):
+            S.append(s)
+            Yk.append(y)
+            if len(S) > memory_size:
+                S.pop(0)
+                Yk.pop(0)
+        x, f, g = x + s, f_new, g_new
+    return MinimizeResult(x=x, fun=f, grad_norm=g.abs().amax(),
+                          niter=torch.tensor(niter, dtype=torch.int32, device=x0.device))
+
+
+def _fun_grad(fun: Callable, x: torch.Tensor):
+    """``fun`` and its gradient at one point ``x``."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_(True)
+        f = fun(xr)
+        (g,) = torch.autograd.grad(f, xr)
+    return f.detach(), g
+
+
+def _two_loop(g, S, Yk):
+    """The L-BFGS inverse-Hessian approximation applied to ``g``, with the
+    initial scaling ``s.y / y.y`` of the newest pair."""
+    q = g.clone()
+    alphas = []
+    for s, y in zip(reversed(S), reversed(Yk)):
+        a = (s @ q) / (s @ y)
+        q = q - a * y
+        alphas.append(a)
+    if S:
+        q = q * ((S[-1] @ Yk[-1]) / (Yk[-1] @ Yk[-1]))
+    for (s, y), a in zip(zip(S, Yk), reversed(alphas)):
+        b = (y @ q) / (s @ y)
+        q = q + (a - b) * s
+    return q
+
+
+def _line_search(fun, x, f0: float, d, slope: float, t: float, c1: float = 1e-4,
+                 c2: float = 0.9, approx_rtol: float = 1e-6, max_evals: int = 30):
+    """A step ``t`` along the descent direction ``d`` (``slope = g . d < 0``)
+    meeting the strong Wolfe conditions, with the Armijo test relaxed to
+    optax's approximate decrease ``f(t) <= f0 + approx_rtol |f0|``; returns
+    ``(t, f(t), grad(t))``, or None after ``max_evals`` evaluations.
+
+    The step doubles while the cost stays acceptable and the slope negative;
+    once bracketed, the next trial is the secant root of the slope, kept in
+    the middle 80% of the bracket, or else the midpoint."""
+    lo, hi = 0.0, None
+    slope_lo, slope_hi = slope, None
+    for _ in range(max_evals):
+        ft, gt = _fun_grad(fun, x + t * d)
+        fv, st = float(ft), float(gt @ d)
+        decrease = fv <= f0 + c1 * t * slope or fv <= f0 + approx_rtol * abs(f0)
+        if decrease and abs(st) <= c2 * -slope:
+            return t, ft, gt
+        if not decrease or st > 0:  # too far (or NaN): t bounds the step from above
+            hi, slope_hi = t, (st if decrease else None)
+        else:
+            lo, slope_lo = t, st
+        if hi is None:
+            t = 2.0 * t
+            continue
+        w = hi - lo
+        t = 0.5 * (lo + hi)
+        if slope_hi is not None and slope_hi > slope_lo:
+            sec = lo - slope_lo * w / (slope_hi - slope_lo)
+            if lo + 0.1 * w <= sec <= hi - 0.1 * w:
+                t = sec
+    return None
 
 
 def _value_and_grad(fun: Callable, xf: torch.Tensor, shape):

@@ -77,8 +77,7 @@ def test_fit_takes_params_on_their_device(fits):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(inference_method="variational", time_block=10), dict(em_mode="online"),
-    dict(time_block=10),
+    dict(inference_method="variational", time_block=10), dict(time_block=10),
 ])
 def test_fitconfig_raises_for_unported_paths(kw):
     with pytest.raises(NotImplementedError):
@@ -86,7 +85,7 @@ def test_fitconfig_raises_for_unported_paths(kw):
 
 
 @pytest.mark.parametrize("kw", [dict(inference_method="mcmc"), dict(em_mode="minibatch"),
-                                dict(vi_solver="auto")])
+                                dict(vi_solver="auto"), dict(online_update="adam")])
 def test_fitconfig_rejects_unknown_values(kw):
     with pytest.raises(ValueError):
         FitConfig(**kw)
@@ -109,5 +108,6 @@ def test_fit_rejects_f32(fits):
 
 def test_public_surface():
     for name in ("dataset", "initialize_params", "stevenson_surrogate", "Params", "FitConfig",
-                 "FitResult", "fit", "params_from_numpy"):
+                 "FitResult", "fit", "params_from_numpy", "draw_batch_indices",
+                 "ONLINE_UPDATE_METHODS"):
         assert hasattr(pgpfa_torch, name)
