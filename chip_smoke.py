@@ -168,6 +168,15 @@ ONLINE_PLL_TOL = 1.1e-3
 ONLINE_DEV_PLL1_REL = 1e-9
 ONLINE_DEV_PARAM_TOL = 4e-6
 ONLINE_DEV_PLL2_TOL = 4e-6
+# MCMC: the card against the CPU on the same draws and prior factor, f64:
+# the same accept decisions (the CPU replays the card's draws and must ask
+# for exactly them) and samples to 1e-9 (exp and the reductions round
+# differently on the two devices). The Laplace-moment bounds of
+# tests/test_components.py: mean |z| < 0.5 and mean sd ratio in
+# (0.65, 1.35) for one chain; max |z| < 0.5 and every sd within 35% for the
+# batched chains.
+MCMC_DEV_TOL = 1e-9
+MCMC_Z, MCMC_RATIO, MCMC_SD_RTOL = 0.5, (0.65, 1.35), 0.35
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -267,8 +276,10 @@ def phase_kernels():
     # blocks (5, 140, 140), the tau M-step's two candidates per latent
     # (10, 140, 140), the per-neuron M-step systems (90, 6, 6), a D that is
     # not a multiple of 32 or 128, the online minibatch's Hessians
-    # (10, 700, 700) and the online C-only 'grad' system (1, 450, 450).
-    for B, D in [(100, 700), (5, 140), (10, 140), (90, 6), (4, 260), (10, 700), (1, 450)]:
+    # (10, 700, 700), the online C-only 'grad' system (1, 450, 450) and the
+    # MCMC prior factor of bench.py's synthetic rows (2, 50, 50).
+    for B, D in [(100, 700), (5, 140), (10, 140), (90, 6), (4, 260), (10, 700), (1, 450),
+                 (2, 50)]:
         A = spd(B, D, 0.5, seed=B * 1000 + D)
         L, Lp = chol32(A), chol32_plain(A)
         torch.cuda.synchronize()
@@ -889,7 +900,7 @@ def phase_online():
         d2 = abs(pg[1] - pc[1])
         dp = max(float((getattr(g, n).cpu() - getattr(c, n)).abs().max())
                  for n in ("C_seq", "d_seq", "tau_seq"))
-        finite = all(bool(torch.isfinite(x).all()) for x in g)
+        finite = all(bool(torch.isfinite(x).all()) for x in g if x is not None)
         for key, v in (("pll1", d1), ("param", dp), ("pll2", d2)):
             worst[key] = max(worst[key], v)
         log(f"online {kw}: card vs CPU post_loglik iteration 1 {d1:.3e} relative, iteration 2 "
@@ -965,6 +976,204 @@ def online_phase_split(res, ds, rows, n, joint):
         f"Newton bodies), (C, d) M-step {dt[1]:.4f} s ({detail}), tau M-step {dt[2]:.4f} s")
 
 
+def laplace_moments(C, d, tau, Y, T, bin_ms):
+    """Laplace posterior means and marginal sds of the trials ``Y``, f64."""
+    from pgpfa_torch.infer.laplace import laplace_estep_from_arrays
+
+    inf, _ = laplace_estep_from_arrays(C, d, tau, Y, T, bin_ms)
+    sd = torch.sqrt(torch.diagonal(inf.post_vsm_gp, dim1=-2, dim2=-1))
+    return inf.post_mean.cpu().numpy(), sd.cpu().numpy()
+
+
+def phase_mcmc():
+    """Elliptical-slice MCMC on the card. (a) the guarded prior factor;
+    (b) the 100 Stevenson chains, card against CPU; (c) the Laplace-moment
+    checks at the small problem; (d) samples/s of bench.py's six MCMC rows.
+    Returns the launches of (d)'s timed runs, summed."""
+    from pgpfa_torch import (dataset, initialize_params, params_from_numpy,
+                             posterior_mcmc_batched, posterior_mcmc_from_arrays,
+                             stevenson_surrogate)
+    from pgpfa_torch.infer import mcmc as M
+    from pgpfa_torch.models.params import rbf_kernel
+    from pgpfa_torch.ops.cuda_kernels import chol32
+
+    ds = stevenson_surrogate(xdim=5, seed=2011)
+    init = initialize_params(5, ds.ydim, ds, seed=0)
+    T, bin_ms = ds.T, float(ds.binSize)
+    p = params_from_numpy(init, "cuda")
+
+    # (a) the prior factor at the surrogate's init, and the guard
+    reset_counts()
+    K = rbf_kernel(p.tau, T, bin_ms)
+    chol = M._prior_chol(K, torch.float64)
+    torch.cuda.synchronize()
+    n_prior = chol32.launches_by_shape[(5, T)]
+    rec = float((chol @ chol.transpose(1, 2) - K).abs().max() / K.abs().max())
+    log(f"mcmc prior factor (5, {T}, {T}): chol32 launches {n_prior}, finite "
+        f"{bool(torch.isfinite(chol).all())}, max|L L^T - K| / max|K| {rec:.3e}")
+    if not (n_prior == 1 and bool(torch.isfinite(chol).all()) and rec <= 1e-5):
+        raise RuntimeError("mcmc: the prior factor at the surrogate's init")
+    Kbad = rbf_kernel(torch.tensor([5.0], dtype=torch.float64, device="cuda"), 400, 10.0, 1e-6)
+    Lbad = M._prior_chol(Kbad, torch.float64)
+    torch.cuda.synchronize()
+    rec = float((Lbad @ Lbad.transpose(1, 2) - Kbad).abs().max() / Kbad.abs().max())
+    raw = bool(torch.isfinite(chol32(Kbad.float())).all())
+    log(f"mcmc guard, T 400, tau 5 s, eps 1e-6: raw f32 factor finite {raw}; guarded factor "
+        f"finite {bool(torch.isfinite(Lbad).all())}, max|L L^T - K| / max|K| {rec:.3e}; chol32 "
+        f"launches at (1, 400) {chol32.launches_by_shape[(1, 400)]} (with the raw one)")
+    if not (bool(torch.isfinite(Lbad).all()) and rec <= 1e-4):
+        raise RuntimeError("mcmc: the guarded factor of the ill-conditioned kernel")
+
+    # (b) 100 adaptive chains, 20 transitions, card against CPU on the card's
+    # draws and factor
+    n_b = 20
+    for dtype in (torch.float64, torch.float32):
+        Cg, dg = p.C.to(dtype), p.d.to(dtype)
+        Yg = torch.as_tensor(ds.Y, dtype=dtype, device="cuda")
+        L = M._prior_chol(rbf_kernel(p.tau.to(dtype), T, bin_ms), dtype)
+        draws = M.SeededDraws(7, "cuda", keep=True)
+        t0 = time.time()
+        g = M._batched_chains(Cg, dg, L, Yg, n_b, draws)
+        torch.cuda.synchronize()
+        t_card = time.time() - t0
+        replay = M.ReplayDraws(draws.kept)
+        t0 = time.time()
+        try:
+            c = M._batched_chains(Cg.cpu(), dg.cpu(), L.cpu(), Yg.cpu(), n_b, replay)
+            same = replay.used == len(draws.kept)
+            err = float((g.samples.cpu() - c.samples).abs().max())
+            err_ll = float(((g.log_lik.cpu() - c.log_lik) / c.log_lik).abs().max())
+        except ValueError as e:  # the CPU asked for another draw: another decision
+            same, err, err_ll = False, float("nan"), float("nan")
+            log(f"mcmc card vs CPU ({str(dtype)[6:]}): {e}")
+        t_cpu = time.time() - t0
+        shrinks = len(draws.kept) - 3 * n_b
+        log(f"mcmc card vs CPU, {ds.numTrials} adaptive chains, {n_b} transitions, "
+            f"{str(dtype)[6:]}: same decisions {same} ({shrinks} shrink loops); max|card - CPU| "
+            f"samples {err:.3e}, log-likelihoods {err_ll:.3e} relative; {t_card:.3f} s card, "
+            f"{t_cpu:.3f} s CPU")
+        if dtype == torch.float64 and not (same and err <= MCMC_DEV_TOL):
+            raise RuntimeError("mcmc: the card's chains disagree with the CPU's")
+
+    # (c) the Laplace-moment checks on the card at the small problem
+    small = dataset(xdim=2, ydim=12, numTrials=8, trialDur=600, binSize=20, dOffset=0.5,
+                    fixTau=True, fixedTau=np.array([0.15, 0.3]), seed=7)
+    sp = params_from_numpy(small.params, "cuda")
+    Ys = torch.as_tensor(small.Y, device="cuda")
+    mean, sd = laplace_moments(sp.C, sp.d, sp.tau, Ys[:2], small.T, 20.0)
+    for dtype in (torch.float64, torch.float32):
+        args = [x.to(dtype) for x in (sp.C, sp.d, sp.tau)]
+        r = posterior_mcmc_from_arrays(*args, Ys[0], small.T, 20.0, n_samples=4000, seed=1)
+        s = r.samples[1000:].double().cpu().numpy()
+        z = float(np.mean(np.abs(s.mean(0) - mean[0]) / sd[0]))
+        ratio = float(np.mean(s.std(0) / sd[0]))
+        log(f"mcmc Laplace check, one chain, {str(dtype)[6:]}: mean |z| {z:.3f} (< {MCMC_Z}), "
+            f"mean sd ratio {ratio:.3f} (in {MCMC_RATIO})")
+        if not (z < MCMC_Z and MCMC_RATIO[0] < ratio < MCMC_RATIO[1]):
+            raise RuntimeError("mcmc: the single chain misses the Laplace moments")
+    for shrink, per, n, burn in (("adaptive", 1, 4000, 1000), ("fixed", 6, 600, 100)):
+        rows = np.repeat([0, 1], per)
+        r = posterior_mcmc_batched(sp.C, sp.d, sp.tau, Ys[rows], small.T, 20.0, n_samples=n,
+                                   seed=1, shrink=shrink)
+        s = r.samples[:, burn:].cpu().numpy()
+        for trial in range(2):
+            pooled = s[rows == trial].reshape((-1,) + s.shape[2:])
+            z = float(np.max(np.abs(pooled.mean(0) - mean[trial]) / sd[trial]))
+            dev = float(np.max(np.abs(pooled.std(0) / sd[trial] - 1)))
+            log(f"mcmc Laplace check, {shrink}, trial {trial} ({per} x {n} samples, {burn} "
+                f"burn-in each): max |z| {z:.3f} (< {MCMC_Z}), max |sd ratio - 1| {dev:.3f} "
+                f"(<= {MCMC_SD_RTOL})")
+            if not (z < MCMC_Z and dev <= MCMC_SD_RTOL):
+                raise RuntimeError(f"mcmc: the {shrink} chains miss the Laplace moments")
+
+    # (d) bench.py's six MCMC rows (bench.py:436-596), samples/s after a warm-up
+    base = json.loads((REPO / "BASELINE_MEASURED_MCMC.json").read_text())["samples_per_sec"]
+    base_s = json.loads((REPO / "BASELINE_MEASURED_MCMC_STEVENSON.json").read_text())["samples_per_sec"]
+    synth = dataset(xdim=2, ydim=20, numTrials=5, trialDur=1000, binSize=20, dOffset=1,
+                    fixTau=True, fixedTau=np.linspace(0.1, 0.5, 2), seed=123)
+    init_s = initialize_params(2, 20, synth, seed=0)
+
+    def arrays(prm, dtype):
+        return [np.asarray(prm[k], dtype=dtype) for k in ("C", "d", "tau")]
+
+    a64, a32 = arrays(init_s, np.float64), arrays(init_s, np.float32)
+    b64, b32 = arrays(init, np.float64), arrays(init, np.float32)
+    sb = float(synth.binSize)
+    rows = [
+        ("MCMC elliptical-slice (1 chain, synthetic)", 1, base, lambda: posterior_mcmc_from_arrays(
+            *a64, synth.Y[0], synth.T, sb, n_samples=500)),
+        ("MCMC elliptical-slice (1 chain, f32, synthetic)", 1, base,
+         lambda: posterior_mcmc_from_arrays(*a32, synth.Y[0], synth.T, sb, n_samples=500, n_spec=1)),
+        ("MCMC elliptical-slice (batched adaptive, all trials)", synth.numTrials, base,
+         lambda: posterior_mcmc_batched(*a64, synth.Y, synth.T, sb, n_samples=500)),
+        ("MCMC elliptical-slice (vmapped branchless, all trials, f32)", synth.numTrials, base,
+         lambda: posterior_mcmc_batched(*a32, synth.Y, synth.T, sb, n_samples=500, shrink="fixed")),
+        ("MCMC elliptical-slice, Stevenson-shaped (100 batched adaptive chains)", ds.numTrials,
+         base_s, lambda: posterior_mcmc_batched(*b64, ds.Y, T, bin_ms, n_samples=200)),
+        ("MCMC elliptical-slice, Stevenson-shaped (100 batched adaptive chains, f32)",
+         ds.numTrials, base_s, lambda: posterior_mcmc_batched(*b32, ds.Y, T, bin_ms, n_samples=200)),
+    ]
+    total = {"chol32": 0, "ns_step": 0}
+    for name, chains, b, run in rows:
+        run()  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        r = run()
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        counts = read_counts()
+        for k in total:
+            total[k] += counts[k]
+        n = r.samples.shape[-3] * chains
+        finite = bool(torch.isfinite(r.samples).all() and torch.isfinite(r.log_lik).all())
+        log(f"mcmc row: {json.dumps({'metric': name, 'value': n / dt, 'unit': 'samples/sec', 'vs_baseline': n / dt / b, 'seconds': dt, 'samples': n, 'dtype': str(r.samples.dtype)[6:], 'chol32_by_shape': {str(k): v for k, v in chol32.launches_by_shape.items()}, 'finite': finite})}")
+        if not (finite and counts["chol32"] == 1):
+            raise RuntimeError(f"mcmc row {name!r}: not finite, or the prior factor not by chol32")
+    return total
+
+
+def phase_checkpoint():
+    """Checkpoint and resume on the card: a 4-iteration f64 Laplace fit of
+    the surrogate stopped after 2 and resumed, and 4 online 'diag'
+    iterations at batch 10 (drawn stream, seed 0) stopped after 2 and
+    resumed, each against the uninterrupted fit. Returns the launches of
+    the four fits, summed."""
+    import tempfile
+
+    from pgpfa_torch import FitConfig, fit_loop, initialize_params, stevenson_surrogate
+
+    ds = stevenson_surrogate(xdim=5, seed=2011)
+    init = initialize_params(5, ds.ydim, ds, seed=0)
+    total = {"chol32": 0, "ns_step": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, cfg in (("batch Laplace", FitConfig(max_em_iter=4)),
+                           ("online 'diag', batch 10", FitConfig(em_mode="online", batch_size=10,
+                                                                max_em_iter=4))):
+            ck = str(Path(tmp) / "ck.npz")
+            reset_counts()
+            full = fit_loop(init, ds.Y, ds.binSize, cfg, device="cuda", record_iter_sec=True)
+            fit_loop(init, ds.Y, ds.binSize, cfg, device="cuda", checkpoint_path=ck, stop_after=2)
+            res = fit_loop(init, ds.Y, ds.binSize, cfg, device="cuda", resume_from=ck,
+                           record_iter_sec=True)
+            counts = read_counts()
+            for k in total:
+                total[k] += counts[k]
+            same = all(torch.equal(getattr(full, f), getattr(res, f))
+                       for f in full._fields if f != "iter_sec")
+            diff = float((full.post_loglik - res.post_loglik).abs().max())
+            log(f"checkpoint, {label}: resumed after 2 of 4 iterations equals the uninterrupted "
+                f"fit {same} (max|post_loglik diff| {diff:.3e}); post_loglik "
+                f"{res.post_loglik.tolist()}; iter_sec uninterrupted {full.iter_sec.tolist()}, "
+                f"resumed {res.iter_sec.tolist()}; launches {counts}")
+            if not (same and bool(torch.isnan(res.iter_sec[:2]).all())
+                    and bool(torch.isfinite(res.iter_sec[2:]).all())):
+                raise RuntimeError(f"checkpoint, {label}: the resumed fit differs")
+            if not all(v > 0 for v in counts.values()):
+                raise RuntimeError(f"checkpoint, {label}: a kernel was not launched: {counts}")
+    return total
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -975,6 +1184,8 @@ def main():
     launches_vi, *vi64 = phase_vi()
     launches_f32 = phase_f32(slice64, vi64)
     launches_online, _ = phase_online()
+    launches_mcmc = phase_mcmc()
+    launches_checkpoint = phase_checkpoint()
 
     kernels = []
     for name, src, replaces, (B, D) in [
@@ -985,6 +1196,8 @@ def main():
                         "launches": launches[name], "launches_vi": launches_vi[name],
                         "launches_wide": launches_wide[name], "launches_f32": launches_f32[name],
                         "launches_online": launches_online[name],
+                        "launches_mcmc": launches_mcmc[name],
+                        "launches_checkpoint": launches_checkpoint[name],
                         **rows[(name, B, D)],
                         "shapes": [r for (n, _, _), r in rows.items() if n == name]})
     print(json.dumps({"kernels": kernels}))

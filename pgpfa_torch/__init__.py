@@ -3,12 +3,14 @@
 A port of the JAX package ``pgpfa`` (which stays the reference): batch and
 online EM (all six online update rules, ``FitConfig(em_mode="online")``)
 with the Laplace or the dual variational E-step (dual-Newton or L-BFGS
-solver), with the f32 factorization and the f32 Newton-Schulz step of its
+solver), with checkpoint and resume (``fit_loop``), and elliptical-slice
+MCMC of the latent posterior (``posterior_mcmc*``), with the f32 factorization and the f32 Newton-Schulz step of its
 mixed-precision solvers as hand-written CUDA kernels
 (``pgpfa_torch/csrc/``). Every function works on tensors of one device:
 on a CUDA device the kernels run, on the CPU their plain PyTorch versions.
-The entry points that take arrays (``fit``, ``params_from_numpy``,
-``convert.to_tensor``) put them on the card unless the caller passes
+The entry points that take arrays (``fit``, ``fit_loop``,
+``posterior_mcmc_from_arrays``, ``posterior_mcmc_batched``,
+``params_from_numpy``, ``convert.to_tensor``) put them on the card unless the caller passes
 ``device="cpu"``; nothing falls back to the CPU when there is no card. The
 default dtype is float64. Nothing here imports JAX.
 
@@ -36,6 +38,13 @@ from pgpfa_torch.em.fit import (  # noqa: E402
     FitResult,
     draw_batch_indices,
     fit,
+    fit_loop,
+)
+from pgpfa_torch.infer.mcmc import (  # noqa: E402
+    ESSResult,
+    posterior_mcmc,
+    posterior_mcmc_batched,
+    posterior_mcmc_from_arrays,
 )
 from pgpfa_torch.models.params import Params  # noqa: E402
 
@@ -49,6 +58,11 @@ __all__ = [
     "ONLINE_UPDATE_METHODS",
     "draw_batch_indices",
     "fit",
+    "fit_loop",
+    "ESSResult",
+    "posterior_mcmc",
+    "posterior_mcmc_batched",
+    "posterior_mcmc_from_arrays",
     "params_from_numpy",
     "params_to_numpy",
 ]

@@ -3,6 +3,8 @@
 :func:`fit` runs the EM loop in Python on one device: E-step = the
 trial-batched Laplace Newton solve or the dual variational solve, M-step =
 the per-neuron (C, d) Newton and the per-latent timescale Newton.
+:func:`fit_loop` is the same loop with checkpoint and resume, ``stop_after``
+and per-iteration timing; :func:`fit` calls it without them.
 
 Batch EM: iteration 0 starts the E-step cold (zero modes, or zero ``rho``
 with the cold budget ``vi_maxiter``); each later iteration warm-starts from
@@ -18,11 +20,14 @@ M-step's result into the old parameters, three (``'diag'``, ``'hess'``,
 from __future__ import annotations
 
 import dataclasses
+import math
+import time
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from pgpfa_torch.convert import params_from_numpy
+from pgpfa_torch.convert import params_from_numpy, to_numpy
 from pgpfa_torch.infer.laplace import InfRes, laplace_estep_from_arrays
 from pgpfa_torch.infer.variational import SOLVERS, vi_estep_from_arrays
 from pgpfa_torch.learn.mstep_gp import learn_tau
@@ -37,6 +42,7 @@ from pgpfa_torch.learn.mstep_obs import (
 )
 from pgpfa_torch.models.params import Params, pack_cd
 from pgpfa_torch.ops.blockmat import solve_psd_mixed
+from pgpfa_torch.utils.io import load_checkpoint, save_checkpoint
 from pgpfa_torch.utils.optim import minimize_lbfgs
 
 BATCH = "batch"
@@ -116,6 +122,9 @@ class FitResult(NamedTuple):
     cd_niter: torch.Tensor  # (iters,)
     tau_niter: torch.Tensor  # (iters, xdim)
     newton_iters: torch.Tensor  # (iters, R) E-step Newton counts; online (iters, batch_size)
+    # (iters,) host seconds per iteration, NaN for those restored from a
+    # checkpoint; only with fit_loop(record_iter_sec=True)
+    iter_sec: Optional[torch.Tensor] = None
 
 
 def _estep(C, d, tau, Y, T, bin_size_ms, warm, cfg: FitConfig):
@@ -244,43 +253,37 @@ def draw_batch_indices(R: int, batch_size: int, n_iter: int, seed: int = 0) -> t
     return torch.stack([torch.randperm(R, generator=gen)[:batch_size] for _ in range(n_iter)])
 
 
-def _fit_batch(C, d, tau, Y, T, bin_size_ms, cfg: FitConfig):
-    rows = []
-    warm = warm_prev = None
-    for n in range(cfg.max_em_iter):
-        # iteration 1 sees warm == warm_prev, where 2 w - w is exactly w
-        ex = None if n == 0 else 2.0 * warm - warm_prev
-        inf, pll, vlb, warm_new = _estep(C, d, tau, Y, T, bin_size_ms, ex, cfg)
-        cd, tr = _mstep_full(C, d, tau, Y, inf, bin_size_ms, cfg)
-        C, d, tau = cd.C, cd.d, tr.tau
-        warm_prev = warm_new if n == 0 else warm
-        warm = warm_new
-        rows.append((cd.C, cd.d, tr.tau, pll, vlb, cd.cost, tr.cost,
-                     cd.grad_norm, cd.niter, tr.niter, inf.newton_iters))
-    return rows
-
-
-def _fit_online(C, d, tau, Y, T, bin_size_ms, cfg: FitConfig, seed: int, batch_indices):
-    R, ydim, _ = Y.shape
+def _minibatches(R: int, cfg: FitConfig, seed: int, batch_indices, start: int, end: int,
+                 device) -> torch.Tensor:
+    """The minibatch rows of online iterations ``start .. end - 1``: drawn
+    (the rows of ``draw_batch_indices(R, batch_size, end, seed)``) or
+    ``batch_indices[n]``, checked and put on ``device`` once."""
     if batch_indices is None:
-        idx = draw_batch_indices(R, cfg.batch_size, cfg.max_em_iter, seed)
+        idx = draw_batch_indices(R, cfg.batch_size, end, seed)[start:]
     else:
         idx = torch.stack([torch.as_tensor(batch_indices[n]).reshape(-1).to(torch.int64)
-                           for n in range(cfg.max_em_iter)])
+                           for n in range(start, end)])
         if not bool(((idx >= 0) & (idx < R)).all()):
             raise ValueError(f"batch_indices must lie in [0, {R})")
-    idx = idx.to(Y.device)
-    P = cumH = _init_prior(cfg, C.shape[1], ydim, C)
-    rows = []
-    for n in range(cfg.max_em_iter):
-        Yb = Y.index_select(0, idx[n])
-        # cold E-step: a new minibatch
-        inf, pll, vlb, _ = _estep(C, d, tau, Yb, T, bin_size_ms, None, cfg)
-        C, d, newtau, P, cumH, cost, tcost, full_tau, det = _online_mstep(
-            n, C, d, tau, Yb, inf, bin_size_ms, cfg, P, cumH)
-        tau = full_tau if cfg.fully_update_tau else newtau
-        rows.append((C, d, tau, pll, vlb, cost, tcost, *det, inf.newton_iters))
-    return rows
+    return idx.to(device)
+
+
+# The per-iteration history, in FitResult's order, under the names of the
+# JAX package's checkpoints (extra_hist_<name>); the last three are counts.
+_HIST_KEYS = ("C", "d", "tau", "pll", "vlb", "cdc", "tc", "cgn", "cni", "tni", "nwi")
+_N_FLOAT_HIST = 8
+
+
+def _save(path, C, d, tau, em_iter, warm, warm_prev, P, cumH, seed, rows):
+    """Write the full resumable state (``pgpfa.em.fit.fit_loop``'s keys, the
+    port's minibatch seed under ``torch_batch_seed``)."""
+    extra = {"P": to_numpy(P), "cumH": to_numpy(cumH), "torch_batch_seed": seed}
+    if warm_prev is not None:
+        extra["warm_prev"] = to_numpy(warm_prev)
+    for i, k in enumerate(_HIST_KEYS):
+        extra["hist_" + k] = np.stack([to_numpy(r[i]) for r in rows])
+    save_checkpoint(path, {"C": to_numpy(C), "d": to_numpy(d), "tau": to_numpy(tau)},
+                    em_iter=em_iter, warm=None if warm is None else to_numpy(warm), extra=extra)
 
 
 def fit(
@@ -317,17 +320,115 @@ def fit(
             drawn ones; iteration ``n`` uses the trials ``batch_indices[n]``,
             as ``pgpfa.em.fit.fit_loop(batch_indices=...)``.
     """
+    return fit_loop(init_params, Y, bin_size_ms, config, device, dtype, seed, batch_indices)
+
+
+def fit_loop(
+    init_params,
+    Y,
+    bin_size_ms: float,
+    config: Optional[FitConfig] = None,
+    device="cuda",
+    dtype=torch.float64,
+    seed: int = 0,
+    batch_indices=None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 10,
+    resume_from: Optional[str] = None,
+    stop_after: Optional[int] = None,
+    record_iter_sec: bool = False,
+) -> FitResult:
+    """:func:`fit` with checkpoint and resume (``pgpfa.em.fit.fit_loop``);
+    :func:`fit` is this loop without them.
+
+    Args (beyond :func:`fit`'s):
+        checkpoint_path: write the full resumable state there every
+            ``checkpoint_every`` iterations and at the last one (the
+            ``.npz`` of :func:`pgpfa_torch.utils.io.save_checkpoint`):
+            parameters, the warm start and the one before it, the EM
+            iteration, the online ``P`` and ``cumH``, the seed of the drawn
+            minibatch stream (``torch_batch_seed``; the stream of iteration
+            ``n`` depends only on it and ``n``) and every iteration's history.
+        resume_from: a checkpoint of either package to continue from; the
+            result equals the uninterrupted fit's, history included. A port
+            checkpoint's minibatch seed replaces ``seed``. An online
+            checkpoint of the JAX package carries a ``jax.random`` key,
+            which cannot be replayed: it resumes only with ``batch_indices``
+            (else ``ValueError``). A checkpoint without ``warm_prev`` (an
+            older format) resumes with a plain warm start.
+        stop_after: end after that many EM iterations (counted from 0, not
+            from the resume point); the histories cover the completed ones.
+        record_iter_sec: time each iteration on the host clock, closed by a
+            ``torch.cuda.synchronize()`` on the card; ``FitResult.iter_sec``,
+            NaN for iterations restored from a checkpoint.
+    """
     cfg = config or FitConfig()
     p = init_params if isinstance(init_params, Params) else params_from_numpy(
         init_params, device, dtype)
     Y = torch.as_tensor(Y, dtype=p.C.dtype, device=p.C.device)
-    T = Y.shape[-1]
+    R, ydim, T = Y.shape
     bin_size_ms = float(bin_size_ms)
+    like = dict(dtype=p.C.dtype, device=p.C.device)
+    C, d, tau = p.C, p.d, p.tau
+    warm = warm_prev = None
+    P = cumH = _init_prior(cfg, C.shape[1], ydim, C)
+    rows, start = [], 0
+    if resume_from is not None:
+        state = load_checkpoint(resume_from)
+        extra = state["extra"]
+        C, d, tau = (torch.tensor(state["params"][k], **like) for k in ("C", "d", "tau"))
+        d, tau = d.reshape(-1), tau.reshape(-1)
+        start = state["em_iter"]
+        if state["warm"] is not None:
+            warm = torch.tensor(state["warm"], **like)
+        # an older checkpoint has no warm_prev: a plain warm start then
+        warm_prev = torch.tensor(extra["warm_prev"], **like) if "warm_prev" in extra else warm
+        if "P" in extra:
+            P, cumH = torch.tensor(extra["P"], **like), torch.tensor(extra["cumH"], **like)
+        if cfg.em_mode == ONLINE and batch_indices is None:
+            if "torch_batch_seed" in extra:
+                seed = int(extra["torch_batch_seed"])
+            elif state["rng_key"] is not None:
+                raise ValueError("this online checkpoint's minibatch stream is a jax.random key, "
+                                 "which the port cannot replay: pass batch_indices")
+        if "hist_pll" in extra:
+            hist = [torch.tensor(extra["hist_" + k], **like) if i < _N_FLOAT_HIST else
+                    torch.tensor(extra["hist_" + k], dtype=torch.int32, device=C.device)
+                    for i, k in enumerate(_HIST_KEYS)]
+            rows = [tuple(h[i] for h in hist) for i in range(start)]
+    end = cfg.max_em_iter if stop_after is None else min(int(stop_after), cfg.max_em_iter)
+    if cfg.em_mode == ONLINE and end > start:
+        idx = _minibatches(R, cfg, seed, batch_indices, start, end, Y.device)
+    times = [math.nan] * start if record_iter_sec else None
 
-    if cfg.em_mode == BATCH:
-        rows = _fit_batch(p.C, p.d, p.tau, Y, T, bin_size_ms, cfg)
-    else:
-        rows = _fit_online(p.C, p.d, p.tau, Y, T, bin_size_ms, cfg, seed, batch_indices)
+    for n in range(start, end):
+        t0 = time.perf_counter()
+        if cfg.em_mode == BATCH:
+            # the secant warm start 2 w_n - w_{n-1} (2 w - w = w at iteration 1)
+            ex = None if warm is None else 2.0 * warm - warm_prev
+            inf, pll, vlb, warm_new = _estep(C, d, tau, Y, T, bin_size_ms, ex, cfg)
+            cd, tr = _mstep_full(C, d, tau, Y, inf, bin_size_ms, cfg)
+            C, d, tau = cd.C, cd.d, tr.tau
+            warm_prev = warm_new if warm is None else warm
+            warm = warm_new
+            row = (C, d, tau, pll, vlb, cd.cost, tr.cost, cd.grad_norm, cd.niter, tr.niter)
+        else:
+            Yb = Y.index_select(0, idx[n - start])
+            # cold E-step: a new minibatch
+            inf, pll, vlb, _ = _estep(C, d, tau, Yb, T, bin_size_ms, None, cfg)
+            C, d, newtau, P, cumH, cost, tcost, full_tau, det = _online_mstep(
+                n, C, d, tau, Yb, inf, bin_size_ms, cfg, P, cumH)
+            tau = full_tau if cfg.fully_update_tau else newtau
+            row = (C, d, tau, pll, vlb, cost, tcost, *det)
+        rows.append(row[:_N_FLOAT_HIST] + tuple(
+            c.to(torch.int32) for c in row[_N_FLOAT_HIST:] + (inf.newton_iters,)))
+        if record_iter_sec:
+            if C.is_cuda:
+                torch.cuda.synchronize(C.device)
+            times.append(time.perf_counter() - t0)
+        if checkpoint_path is not None and ((n + 1) % checkpoint_every == 0 or n + 1 == end):
+            _save(checkpoint_path, C, d, tau, n + 1, warm, warm_prev, P, cumH, seed, rows)
+
     seq = [torch.stack(col) for col in zip(*rows)]
     C_seq, d_seq, tau_seq, pll, vlb, cdc, tc, cgn, cni, tni, nwi = seq
     return FitResult(
@@ -335,4 +436,5 @@ def fit(
         C_seq=C_seq, d_seq=d_seq, tau_seq=tau_seq,
         post_loglik=pll, var_lower_bound=vlb, cd_cost=cdc, tau_cost=tc,
         cd_grad_norm=cgn, cd_niter=cni, tau_niter=tni, newton_iters=nwi,
+        iter_sec=None if times is None else torch.tensor(times, dtype=torch.float64),
     )

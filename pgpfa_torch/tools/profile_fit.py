@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the device time of the port's fit goes, on one NVIDIA GPU.
 
-    python3 pgpfa_torch/tools/profile_fit.py [laplace|variational|online] [f64|f32]
+    python3 pgpfa_torch/tools/profile_fit.py [laplace|variational|online|mcmc|mcmc1] [f64|f32]
 
 1. fit, under ``torch.profiler``, on the Stevenson-shaped surrogate (100
    trials x 90 neurons x 140 bins, xdim 5, Poisson-PCA init with seed 0),
@@ -11,7 +11,9 @@
    2-iteration variational fit, its dual warm-started from the solution at
    the parameters one M-step earlier. ``online``: a 2-iteration online
    ``'diag'`` fit at batch 10 (minibatches drawn with seed 0) after a
-   one-iteration warm-up fit. Prints the wall time (profiler on),
+   one-iteration warm-up fit. ``mcmc``: 20 samples of the 100 batched
+   adaptive ESS chains; ``mcmc1``: 100 samples of one speculative chain on
+   bench.py's synthetic data; each after a warm-up call. Prints the wall time (profiler on),
    the summed device time of every kernel and copy, so the device's busy
    and idle share of the wall, the device time by the ATen op that
    launched it (the hand-written kernels, which no ATen op launches, by
@@ -39,7 +41,15 @@ from torch.profiler import ProfilerActivity, profile
 REPO = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(REPO))
 
-from pgpfa_torch import FitConfig, fit, initialize_params, stevenson_surrogate  # noqa: E402
+from pgpfa_torch import (  # noqa: E402
+    FitConfig,
+    dataset,
+    fit,
+    initialize_params,
+    posterior_mcmc_batched,
+    posterior_mcmc_from_arrays,
+    stevenson_surrogate,
+)
 from pgpfa_torch.infer import variational as V  # noqa: E402
 from pgpfa_torch.learn.mstep_gp import learn_tau  # noqa: E402
 from pgpfa_torch.learn.mstep_obs import learn_cd  # noqa: E402
@@ -100,10 +110,38 @@ def online_run(ds, init, dtype):
     return run, "2 online 'diag' EM iterations, batch 10"
 
 
+def mcmc_run(ds, init, dtype):
+    """Warm-up; returns 20 samples of the 100 adaptive ESS chains."""
+    def run():
+        posterior_mcmc_batched(*(np.asarray(init[k], dtype=np_dtype(dtype)) for k in ("C", "d", "tau")),
+                               ds.Y, ds.T, float(ds.binSize), n_samples=20, seed=1)
+    run()
+    return run, "20 samples of 100 batched adaptive ESS chains"
+
+
+def mcmc1_run(ds, init, dtype):
+    """Warm-up; returns 100 samples of one speculative ESS chain (n_spec 8)
+    on bench.py's synthetic data (xdim 2, 20 neurons, T 50), its init."""
+    synth = dataset(xdim=2, ydim=20, numTrials=5, trialDur=1000, binSize=20, dOffset=1,
+                    fixTau=True, fixedTau=np.linspace(0.1, 0.5, 2), seed=123)
+    p = initialize_params(2, 20, synth, seed=0)
+
+    def run():
+        posterior_mcmc_from_arrays(*(np.asarray(p[k], dtype=np_dtype(dtype)) for k in ("C", "d", "tau")),
+                                   synth.Y[0], synth.T, float(synth.binSize), n_samples=100, seed=1)
+    run()
+    return run, "100 samples of one speculative ESS chain (n_spec 8), synthetic"
+
+
+def np_dtype(dtype):
+    return np.float32 if dtype == torch.float32 else np.float64
+
+
 def profile_fit(method, dtype):
     ds = stevenson_surrogate(xdim=5, seed=2011)
     init = initialize_params(5, ds.ydim, ds, seed=0)
-    runs = {"laplace": laplace_run, "variational": variational_run, "online": online_run}
+    runs = {"laplace": laplace_run, "variational": variational_run, "online": online_run,
+            "mcmc": mcmc_run, "mcmc1": mcmc1_run}
     run, label = runs[method](ds, init, dtype)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -177,9 +215,9 @@ def profile_ns_step():
 def main():
     method = sys.argv[1] if len(sys.argv) > 1 else "laplace"
     precision = sys.argv[2] if len(sys.argv) > 2 else "f64"
-    if method not in ("laplace", "variational", "online"):
-        raise SystemExit(f"profile_fit: unknown method {method!r}; choose laplace, variational "
-                         "or online")
+    if method not in ("laplace", "variational", "online", "mcmc", "mcmc1"):
+        raise SystemExit(f"profile_fit: unknown method {method!r}; choose laplace, variational, "
+                         "online, mcmc or mcmc1")
     dtypes = {"f64": torch.float64, "f32": torch.float32}
     if precision not in dtypes:
         raise SystemExit(f"profile_fit: unknown precision {precision!r}; choose f64 or f32")

@@ -109,5 +109,6 @@ def test_fit_rejects_f32(fits):
 def test_public_surface():
     for name in ("dataset", "initialize_params", "stevenson_surrogate", "Params", "FitConfig",
                  "FitResult", "fit", "params_from_numpy", "draw_batch_indices",
-                 "ONLINE_UPDATE_METHODS"):
+                 "ONLINE_UPDATE_METHODS", "fit_loop", "posterior_mcmc",
+                 "posterior_mcmc_from_arrays", "posterior_mcmc_batched", "ESSResult"):
         assert hasattr(pgpfa_torch, name)
