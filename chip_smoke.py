@@ -65,6 +65,27 @@ Phases (any failure raises and the exit code is not 0):
    iterations each on the card against the CPU; C-only ``'grad'`` launches
    ``chol32`` at (1, 450, 450). (c) One warm iteration of the joint and of
    the C-only ``'diag'`` rule, timed by phase.
+10. mcmc: elliptical-slice MCMC (the guarded prior factor; 100 chains card
+    against CPU on the card's draws; the Laplace-moment checks; samples/s of
+    ``bench.py``'s six MCMC rows).
+11. checkpoint: 4-iteration Laplace and online fits stopped after 2 and
+    resumed, bit-equal to the uninterrupted fits on the card.
+12. diag: the class driver and the diagnostics, same data and init. (a)
+    ``PPGPFAfit``, batch Laplace, f64, 3 EM iterations with
+    ``extractAllTraj`` and ``getPredictionErr``: the nPLL trajectory against
+    the oracle as in the slice phase, and leave-one-neuron-out prediction
+    over all 9000 (trial, neuron) lanes in chunks sized from the free
+    memory, below the constant-mean-rate predictor's error; ``chol32``
+    launched at the chunk shape and ``ns_step`` launched; the LOO then
+    repeated, timed, with its peak memory. (b) 20 of those lanes on the
+    CPU, the predictions within 1e-8 relative. (c) The Stevenson CV sweep
+    of ``bench.py`` (10 training and 2 test trials, xdim 1..5 padded, 3 EM
+    iterations), its errors within ``CV_ERR_TOL`` of the original NumPy
+    reference's (``BASELINE_MEASURED_CV_STEVENSON.json``), its optimXdim
+    that file's, timed against the file's seconds; the xdim-1 point
+    unpadded equal to the padded one to 1e-8. (d) ``cd_error_bars`` at the
+    fitted parameters, card against CPU to 1e-8. ``chol32`` is also timed
+    at the chunk shape.
 
 The last three lines of standard output are one JSON object with the
 kernels' numbers, the ``nvidia-smi`` name and power limit, and
@@ -177,6 +198,18 @@ ONLINE_DEV_PLL2_TOL = 4e-6
 # batched chains.
 MCMC_DEV_TOL = 1e-9
 MCMC_Z, MCMC_RATIO, MCMC_SD_RTOL = 0.5, (0.65, 1.35), 0.35
+# The CV sweep against the original NumPy reference's run of it
+# (BASELINE_MEASURED_CV_STEVENSON.json): twice the JAX package's own largest
+# relative distance from those errors (5.24e-4, BENCH_SECONDARY.json),
+# rounded up. Padded against unpadded, LOO card against CPU and the error
+# bars card against CPU: 1e-8 relative (both sides solve to a Newton
+# decrement below 1e-12 with f64-refined directions; only the rounding of
+# their f32 factors differs).
+CV_ERR_TOL = 1.1e-3
+DIAG_DEV_TOL = 1e-8
+# The 20 lanes held card against CPU: trial 0 neurons 0-9 and trial 57
+# neurons 40-49 (the CPU factors each (700, 700) Hessian in tens of ms).
+LOO_CPU_LANES = list(range(10)) + list(range(57 * 90 + 40, 57 * 90 + 50))
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -276,10 +309,11 @@ def phase_kernels():
     # blocks (5, 140, 140), the tau M-step's two candidates per latent
     # (10, 140, 140), the per-neuron M-step systems (90, 6, 6), a D that is
     # not a multiple of 32 or 128, the online minibatch's Hessians
-    # (10, 700, 700), the online C-only 'grad' system (1, 450, 450) and the
-    # MCMC prior factor of bench.py's synthetic rows (2, 50, 50).
+    # (10, 700, 700), the online C-only 'grad' system (1, 450, 450), the
+    # MCMC prior factor of bench.py's synthetic rows (2, 50, 50) and the
+    # leave-one-out scoring of the CV sweep's 2 test trials (180, 700, 700).
     for B, D in [(100, 700), (5, 140), (10, 140), (90, 6), (4, 260), (10, 700), (1, 450),
-                 (2, 50)]:
+                 (2, 50), (180, 700)]:
         A = spd(B, D, 0.5, seed=B * 1000 + D)
         L, Lp = chol32(A), chol32_plain(A)
         torch.cuda.synchronize()
@@ -1174,6 +1208,150 @@ def phase_checkpoint():
     return total
 
 
+def phase_diag(rows):
+    """The class driver and the diagnostics on the card (see the module
+    docstring, phase 12). Adds the chunk-shape timing row of ``chol32`` to
+    ``rows``; returns the launches of (a) and (c), summed."""
+    from pgpfa_torch import (PPGPFAfit, cd_error_bars, crossValidation, initialize_params,
+                             params_from_numpy, stevenson_surrogate)
+    from pgpfa_torch.diag import loo as LOO
+    from pgpfa_torch.models.params import rbf_kernel
+    from pgpfa_torch.ops.blockmat import blocks_inv
+    from pgpfa_torch.ops.cuda_kernels import chol32, chol32_plain
+
+    oracle = json.loads((REPO / "ORACLE_TRAJ_STEVENSON.json").read_text())
+    cv_ref = json.loads((REPO / "BASELINE_MEASURED_CV_STEVENSON.json").read_text())
+    ds = stevenson_surrogate(xdim=5, seed=2011)
+    init = initialize_params(5, ds.ydim, ds, seed=0)
+    R, ydim, T = ds.Y.shape
+    D, n_lanes = 5 * T, R * ydim
+
+    # (a) PPGPFAfit with the trajectories and the leave-one-out predictions
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.time()
+    fit = PPGPFAfit(ds, init, maxEMiter=3, extractAllTraj=True, getPredictionErr=True,
+                    device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak_a = torch.cuda.max_memory_allocated() - base_mem
+    counts = read_counts()
+    total = dict(counts)
+    loo_shapes = {B: n for (B, Dk), n in chol32.launches_by_shape.items()
+                  if Dk == D and B != R}
+    pll = np.asarray(fit.posteriorLikelihood)
+    const = ds.Y.mean(axis=(0, 2))[None, :, None]
+    err_const = float(np.sum((ds.Y - const) ** 2))
+    log(f"diag PPGPFAfit: {wall:.3f} s (3 EM iterations, extractAllTraj, LOO over {n_lanes} "
+        f"lanes); launches {counts}; LOO chol32 launches by chunk size {loo_shapes}; "
+        f"inferenceTime {fit.inferenceTime.tolist()}, learningTime {fit.learningTime.tolist()}; "
+        f"peak memory {peak_a / 2**30:.3f} GiB")
+    log(f"diag nPLL {pll.tolist()}; LOO error {fit.pred_err_mode:.6f} (constant-rate predictor "
+        f"{err_const:.6f}); nll_all_traj {fit.nll_all_traj:.6f}")
+    for n in range(3):
+        diff = abs(pll[n] - oracle["post_loglik"][n])
+        tol = PLL_TOL if n == 0 else PLL_TOL_ITER2 * CHAOS ** (n - 1)
+        if not diff <= tol:
+            raise RuntimeError(f"diag: PPGPFAfit iteration {n + 1} nPLL off the oracle by "
+                               f"{diff:.3e} > {tol:.1e}")
+    if not (np.isfinite(fit.pred_err_mode) and fit.pred_err_mode < err_const
+            and np.all(np.isfinite(fit.y_pred_mode)) and fit.y_pred_mode.shape == ds.Y.shape):
+        raise RuntimeError("diag: the LOO predictions are not finite or do not beat the "
+                           "constant predictor")
+    if not (loo_shapes and counts["ns_step"] > 0):
+        raise RuntimeError(f"diag: LOO did not launch chol32 at a chunk shape or ns_step "
+                           f"did not launch: {counts}, {loo_shapes}")
+    chunk = max(loo_shapes)
+
+    # the LOO again, timed, with its peak memory
+    first = fit.y_pred_mode
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.time()
+    fit.leaveOneOutPrediction()
+    torch.cuda.synchronize()
+    loo_sec = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    again = float(np.abs(fit.y_pred_mode - first).max() / np.abs(first).max())
+    log(f"diag LOO: {loo_sec:.3f} s for {n_lanes} lanes in chunks of {chunk} "
+        f"({-(-n_lanes // chunk)} chunks); peak memory {peak / 2**30:.3f} GiB "
+        f"({peak / chunk / 2**20:.3f} MiB per lane of the largest chunk, "
+        f"{peak / chunk / (4 * D * D):.2f} f32 (D, D) arrays); repeat vs first {again:.3e}")
+    if not again <= 1e-12:
+        raise RuntimeError(f"diag: the repeated LOO differs from the first by {again:.3e}")
+
+    # (b) 20 lanes on the CPU
+    pc = params_from_numpy(fit.optimParams, "cpu")
+    Kinv = blocks_inv(rbf_kernel(pc.tau, T, float(ds.binSize)))
+    t0 = time.time()
+    cpu = LOO._loo_lanes(pc.C, pc.d, Kinv, torch.as_tensor(ds.Y),
+                         torch.tensor(LOO_CPU_LANES)).numpy()
+    cpu_sec = time.time() - t0
+    card = fit.y_pred_mode.reshape(n_lanes, T)[LOO_CPU_LANES]
+    rel = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    log(f"diag LOO card vs CPU on {len(LOO_CPU_LANES)} lanes: max rel {rel:.3e} "
+        f"(tolerance {DIAG_DEV_TOL:.0e}); CPU {cpu_sec:.2f} s")
+    if not rel <= DIAG_DEV_TOL:
+        raise RuntimeError(f"diag: LOO card vs CPU {rel:.3e}")
+
+    # (c) the Stevenson CV sweep of bench.py, then the xdim-1 point unpadded
+    kw = dict(numTrainingTrials=cv_ref["n_train"], numTestTrials=cv_ref["n_test"],
+              maxEMiter=cv_ref["n_iters"], device="cuda")
+    reset_counts()
+    t0 = time.time()
+    cv = crossValidation(ds, maxXdim=cv_ref["max_xdim"], **kw)
+    torch.cuda.synchronize()
+    cv_sec = time.time() - t0
+    counts = read_counts()
+    cv_shapes = {str(k): v for k, v in sorted(chol32.launches_by_shape.items()) if k[1] == D}
+    for k in total:
+        total[k] += counts[k]
+    rels = (np.abs(np.asarray(cv.errs) - cv_ref["errs"]) / np.abs(cv_ref["errs"])).tolist()
+    raw = crossValidation(ds, maxXdim=1, pad_xdim=False, **kw)
+    pad_rel = abs(raw.errs[0] - cv.errs[0]) / abs(raw.errs[0])
+    log(f"cv row: {json.dumps({'metric': 'CV latent-dim sweep, Stevenson-shaped (10tr train/2 test, maxXdim=5, 3 EM iters)', 'value': cv_sec, 'unit': 'sec total', 'vs_baseline': cv_ref['total_sec'] / cv_sec, 'optim_xdim': cv.optimXdim, 'ref_optim_xdim': cv_ref['optim_xdim'], 'errs': cv.errs, 'errs_reldiff_vs_reference': rels, 'launches': counts, 'chol32_by_shape_at_D700': cv_shapes})}")
+    log(f"diag CV: xdim-1 unpadded {raw.errs[0]:.9f} vs padded {cv.errs[0]:.9f}, relative "
+        f"{pad_rel:.3e} (tolerance {DIAG_DEV_TOL:.0e})")
+    if not (max(rels) <= CV_ERR_TOL and cv.optimXdim == cv_ref["optim_xdim"]):
+        raise RuntimeError(f"diag: CV errors {rels} (tolerance {CV_ERR_TOL}) or optimXdim "
+                           f"{cv.optimXdim} off the reference")
+    if not (pad_rel <= DIAG_DEV_TOL and chol32.launches_by_shape[(2 * ydim, D)] > 0
+            and all(v > 0 for v in counts.values())):
+        raise RuntimeError(f"diag: padded vs unpadded {pad_rel:.3e}, or a kernel not launched")
+
+    # (d) the (C, d) error bars at the fitted parameters, card against CPU
+    means, vsms = fit._inf.post_mean, fit._inf.post_vsm
+    eb = cd_error_bars(fit.optimParams, ds.Y, means, vsms, device="cuda")
+    eb_cpu = cd_error_bars(fit.optimParams, ds.Y, means.cpu(), vsms.cpu(), device="cpu")
+    rel = float(np.abs(eb - eb_cpu).max() / np.abs(eb_cpu).max())
+    log(f"diag cd_error_bars {eb.shape}: range [{eb.min():.4g}, {eb.max():.4g}]; card vs CPU "
+        f"{rel:.3e} (tolerance {DIAG_DEV_TOL:.0e})")
+    if not (eb.shape == (6 * ydim,) and np.all(np.isfinite(eb)) and rel <= DIAG_DEV_TOL):
+        raise RuntimeError(f"diag: cd_error_bars card vs CPU {rel:.3e}")
+
+    # chol32 timed at the LOO's chunk shape (inputs: one seeded SPD batch
+    # repeated, so the inputs are made without chunk-sized f64 temporaries)
+    A = spd(2 * ydim, D, 0.5, seed=chunk).repeat(-(-chunk // (2 * ydim)), 1, 1)[:chunk]
+    A = A.contiguous()
+    L = chol32(A)
+    err, ok = 0.0, torch.equal(L, L.tril())
+    for i in range(0, chunk, 500):  # in slices: chunk-sized temporaries would not fit
+        Lp = chol32_plain(A[i:i + 500])
+        err = max(err, float((L[i:i + 500] - Lp).abs().max()))
+        ok = ok and torch.allclose(L[i:i + 500], Lp, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+    del L, Lp
+    log(f"chol32 ({chunk}, {D}, {D}): allclose to plain at rtol=atol={KERNEL_TOL}: {ok}")
+    if not ok:
+        raise RuntimeError(f"chol32 disagrees with its plain version at ({chunk}, {D}, {D})")
+    timed(rows, "chol32", chunk, D, err, lambda: chol32(A), lambda: chol32_plain(A),
+          lambda: torch.linalg.cholesky_ex(A), chol32_bound(chunk, D))
+    del A
+    torch.cuda.empty_cache()
+    return total
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1186,6 +1364,7 @@ def main():
     launches_online, _ = phase_online()
     launches_mcmc = phase_mcmc()
     launches_checkpoint = phase_checkpoint()
+    launches_diag = phase_diag(rows)
 
     kernels = []
     for name, src, replaces, (B, D) in [
@@ -1198,6 +1377,7 @@ def main():
                         "launches_online": launches_online[name],
                         "launches_mcmc": launches_mcmc[name],
                         "launches_checkpoint": launches_checkpoint[name],
+                        "launches_diag": launches_diag[name],
                         **rows[(name, B, D)],
                         "shapes": [r for (n, _, _), r in rows.items() if n == name]})
     print(json.dumps({"kernels": kernels}))

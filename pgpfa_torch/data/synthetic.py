@@ -57,9 +57,11 @@ def sample_trials_numpy(rng, params, num_trials, T, bin_size_ms, draw_same_x=Fal
 class dataset:
     """Multi-trial synthetic spike-count dataset.
 
-    Keeps the attributes of ``pgpfa.dataset`` that a fit reads: ``X``, ``Y``
-    (stacked ``(R, ., T)`` arrays), ``data`` (per-trial dicts), ``params``,
-    ``T``, ``binSize``, ``trialDur``, ``numTrials``, ``xdim``, ``ydim``.
+    The attributes of ``pgpfa.dataset``: ``X``, ``Y`` (stacked
+    ``(R, ., T)`` arrays), ``data`` (per-trial dicts), ``params``, ``T``,
+    ``binSize``, ``trialDur``, ``numTrials``, ``xdim``, ``ydim``, and the
+    count statistics its constructor computes (``avgFR``, ``totalSpkCt``,
+    ``all_raster``, ``means``, ``variances``, ``curve_p``, ``curve_p_cov``).
     """
 
     def __init__(
@@ -101,6 +103,62 @@ class dataset:
         self.X = np.asarray(X)
         self.Y = np.asarray(Y)
         self.data = [{"X": self.X[r], "Y": self.Y[r]} for r in range(self.numTrials)]
+
+        self.getAvgFiringRate()
+        self.getAllRaster()
+        self.getMeanAndVariance()
+        try:
+            self.fitPolynomialToMeanVar()
+        except (RuntimeError, TypeError, ValueError):  # too few or degenerate points; diagnostic only
+            self.curve_p = None
+            self.curve_p_cov = None
+
+    # -- statistics ----------------------------------------------------------
+
+    def getAvgFiringRate(self):
+        """Per-neuron firing rate in Hz (``avgFR``) and the total count."""
+        totals = self.Y.sum(axis=(0, 2))
+        self.avgFR = totals / self.numTrials / (self.trialDur / 1000.0)
+        self.totalSpkCt = float(self.Y.sum())
+        return self.avgFR
+
+    def getAllRaster(self):
+        """``(ydim, R*T)``: the trials concatenated along time."""
+        self.all_raster = np.concatenate([self.Y[r] for r in range(self.numTrials)], axis=1)
+        return self.all_raster
+
+    def getMeanAndVariance(self):
+        """Per-(neuron, trial) mean and variance over time bins, ``(ydim, R)``."""
+        self.means = self.Y.mean(axis=2).T
+        self.variances = self.Y.var(axis=2).T
+
+    def fitPolynomialToMeanVar(self):
+        """Least-squares ``variance = a mean^b`` over the (neuron, trial)
+        pairs (``curve_p = (a, b)``, ``curve_p_cov``)."""
+        import scipy.optimize as sopt
+
+        m = self.means.reshape(-1)
+        v = self.variances.reshape(-1)
+        p, cov = sopt.curve_fit(lambda x, a, b: a * x**b, m, v, maxfev=100000)
+        self.curve_p = p
+        self.curve_p_cov = cov
+
+    # -- plots (matplotlib, imported when drawn) --------------------------------
+
+    def plotTrajectory(self, trialToShow: int = 0):
+        from pgpfa_torch.diag.plotting import plot_dataset_trajectory
+
+        return plot_dataset_trajectory(self, trialToShow)
+
+    def plotParams(self):
+        from pgpfa_torch.diag.plotting import plot_dataset_params
+
+        return plot_dataset_params(self)
+
+    def plotMeanVsVariance(self):
+        from pgpfa_torch.diag.plotting import plot_mean_vs_variance
+
+        return plot_mean_vs_variance(self)
 
 
 def stack_experiment(experiment) -> np.ndarray:

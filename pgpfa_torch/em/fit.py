@@ -15,6 +15,10 @@ Online EM: each iteration runs a cold E-step on a minibatch of trials and
 one of the six update rules of ``_online_mstep``: three mix the full
 M-step's result into the old parameters, three (``'diag'``, ``'hess'``,
 ``'grad'``) take a proximal or damped Newton step from them.
+
+:class:`PPGPFAfit` is the reference-compatible class driver over the same
+E- and M-steps, with host-side histories, per-phase timing and the fit
+diagnostics.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ import numpy as np
 import torch
 
 from pgpfa_torch.convert import params_from_numpy, to_numpy
+from pgpfa_torch.data.init import initialize_params
+from pgpfa_torch.data.synthetic import stack_experiment
 from pgpfa_torch.infer.laplace import InfRes, laplace_estep_from_arrays
 from pgpfa_torch.infer.variational import SOLVERS, vi_estep_from_arrays
 from pgpfa_torch.learn.mstep_gp import learn_tau
@@ -438,3 +444,352 @@ def fit_loop(
         cd_grad_norm=cgn, cd_niter=cni, tau_niter=tni, newton_iters=nwi,
         iter_sec=None if times is None else torch.tensor(times, dtype=torch.float64),
     )
+
+
+# --------------------------------------------------------------------------
+# reference-compatible class driver
+# --------------------------------------------------------------------------
+
+
+class PPGPFAfit:
+    """Poisson-GPFA fit with the reference's call pattern and attribute
+    surface (``pgpfa.em.fit.PPGPFAfit``): construction runs the fit.
+
+    Each iteration is :func:`fit_loop`'s E-step and M-step (batch EM with its
+    secant warm start ``2 w_n - w_{n-1}``; online EM with a cold E-step on
+    each minibatch), timed on the host clock: ``inferenceTime`` ends after a
+    readback of the E-step's nPLL and ``learningTime`` after one of the new
+    parameters, so the card has finished each phase. Online minibatches are
+    the rows of ``draw_batch_indices(R, batchSize, maxEMiter, seed)``, the
+    stream of :func:`fit` with that seed (not the JAX package's
+    ``jax.random`` draws); ``seenTrialIdx`` records them.
+
+    ``device`` and ``dtype`` are :func:`fit`'s: the card unless the caller
+    passes ``device="cpu"``. The histories (``paramSeq``,
+    ``learningDetails``, ...) are NumPy; ``_inf`` is the last E-step's
+    :class:`~pgpfa_torch.infer.laplace.InfRes` on ``device``, and ``infRes``
+    its reference-layout NumPy copy.
+    """
+
+    def __init__(
+        self,
+        experiment,
+        initParams=None,
+        xdim: int = 2,
+        inferenceMethod: str = "laplace",
+        maxEMiter: int = 50,
+        optimLogLamb: bool = False,
+        CdOptimMethod: str = "TNC",
+        tauOptimMethod: str = "TNC",
+        EMmode: str = "Batch",
+        batchSize: int = 5,
+        onlineParamUpdateMethod: str = "diag",
+        hessTol=None,
+        stepPow: float = 0.75,
+        updateCdJointly: bool = True,
+        fullyUpdateTau: bool = False,
+        extractAllTraj: bool = False,
+        extractAllTraj_trueParams: bool = False,
+        getPredictionErr: bool = False,
+        CdMaxIter=None,
+        tauMaxIter=None,
+        seed: int = 0,
+        verbose: bool = False,
+        config: Optional[FitConfig] = None,
+        device="cuda",
+        dtype=torch.float64,
+    ):
+        # The reference's optimizer options have no counterpart here: the
+        # M-steps are exact-derivative Newton solvers, the dual is optimized
+        # in rho = log(lambda) and curvature is analytic. They warn.
+        import warnings
+
+        for nm, val in (("CdOptimMethod", CdOptimMethod), ("tauOptimMethod", tauOptimMethod)):
+            if val != "TNC":
+                warnings.warn(
+                    f"{nm}={val!r} is a scipy optimizer name; pgpfa_torch's M-steps are "
+                    "exact-derivative Newton solvers and ignore it", stacklevel=2)
+        if inferenceMethod == "variational" and not optimLogLamb:
+            warnings.warn(
+                "optimLogLamb=False (the reference's bounded-lambda L-BFGS-B dual) is not "
+                "available: pgpfa_torch optimizes the dual in rho = log(lambda), the "
+                "reference's optimLogLamb=True variant", stacklevel=2)
+        if hessTol is not None:
+            warnings.warn("hessTol is ignored: pgpfa_torch uses exact analytic curvature, "
+                          "not finite differences", stacklevel=2)
+        self.experiment = experiment
+        Y = stack_experiment(experiment)
+        R, ydim, T = Y.shape
+        if initParams is None:
+            initParams = initialize_params(xdim, ydim, experiment, seed=seed)
+        else:
+            xdim = np.shape(initParams["C"])[1]
+
+        extra_cfg = {}
+        if CdMaxIter is not None:
+            # an upper bound on the M-step's iterations: binds only below
+            # the fixed Newton budget
+            extra_cfg["cd_maxiter"] = int(CdMaxIter)
+            extra_cfg["cd_newton_iters"] = max(min(int(CdMaxIter), FitConfig.cd_newton_iters), 1)
+        if tauMaxIter is not None:
+            extra_cfg["tau_maxiter"] = max(min(int(tauMaxIter), FitConfig.tau_maxiter), 1)
+        cfg = config or FitConfig(
+            inference_method=inferenceMethod,
+            em_mode=EMmode.lower(),
+            max_em_iter=maxEMiter,
+            batch_size=batchSize,
+            online_update=onlineParamUpdateMethod,
+            step_pow=stepPow,
+            update_cd_jointly=updateCdJointly,
+            fully_update_tau=fullyUpdateTau,
+            **extra_cfg,
+        )
+        self.config = cfg
+        self.device, self.dtype = torch.device(device), dtype
+
+        p = params_from_numpy(initParams, device, dtype)
+        Yt = torch.as_tensor(Y, dtype=dtype, device=p.C.device)
+        bin_size_ms = float(experiment.binSize)
+        C, d, tau = p.C, p.d, p.tau
+        warm = warm_prev = None
+        P = cumH = _init_prior(cfg, xdim, ydim, C)
+        if cfg.em_mode == ONLINE:
+            idx = draw_batch_indices(R, cfg.batch_size, cfg.max_em_iter, seed)
+
+        if verbose:
+            from pgpfa_torch.utils.io import print_options_banner
+
+            rows = [
+                ("Dimensionality of Latent State", xdim),
+                ("Dimensionality of Observed State (# neurons)", ydim),
+                ("EM mode", "Batch" if cfg.em_mode == BATCH else "Online"),
+                ("Max EM iterations", cfg.max_em_iter),
+                ("Inference Method", cfg.inference_method),
+            ]
+            if cfg.em_mode == ONLINE:
+                rows += [
+                    ("Online Param Update Method", f"`{cfg.online_update}`"),
+                    ("Batch size (trials)", cfg.batch_size),
+                ]
+            print_options_banner("Fit Options", rows)
+
+        posteriorLikelihood, variationalLowerBound = [], []
+        learningDetails, paramSeq = [], [dict(initParams)]
+        inferenceTime, learningTime, seenTrialIdx = [], [], []
+        for n in range(cfg.max_em_iter):
+            t0 = time.perf_counter()
+            if cfg.em_mode == BATCH:
+                Yb = Yt
+                ex = None if warm is None else 2.0 * warm - warm_prev
+                inf, pll, vlb, warm_new = _estep(C, d, tau, Yb, T, bin_size_ms, ex, cfg)
+                warm_prev = warm_new if warm is None else warm
+                warm = warm_new
+            else:
+                seenTrialIdx.append(idx[n].numpy())
+                Yb = Yt.index_select(0, idx[n].to(Yt.device))
+                inf, pll, vlb, _ = _estep(C, d, tau, Yb, T, bin_size_ms, None, cfg)
+            posteriorLikelihood.append(float(pll))  # the readback ends the E-step
+            inferenceTime.append(time.perf_counter() - t0)
+            if cfg.inference_method == "variational":
+                variationalLowerBound.append(float(vlb))
+
+            t0 = time.perf_counter()
+            if cfg.em_mode == BATCH:
+                cd, tr = _mstep_full(C, d, tau, Yb, inf, bin_size_ms, cfg)
+                C, d, tau = cd.C, cd.d, tr.tau
+                cd_c, tau_c, det = cd.cost, tr.cost, (cd.grad_norm, cd.niter, tr.niter)
+            else:
+                C, d, newtau, P, cumH, cd_c, tau_c, full_tau, det = _online_mstep(
+                    n, C, d, tau, Yb, inf, bin_size_ms, cfg, P, cumH)
+                tau = full_tau if cfg.fully_update_tau else newtau
+            params_n = {"C": to_numpy(C), "d": to_numpy(d), "tau": to_numpy(tau)}
+            learningTime.append(time.perf_counter() - t0)
+            learningDetails.append({
+                "Cd": float(cd_c), "tau": to_numpy(tau_c),
+                "Cd_grad_norm": float(det[0]), "Cd_niter": int(det[1]),
+                "tau_niter": to_numpy(det[2]),
+                "inference_newton_iters": to_numpy(inf.newton_iters.to(torch.int32)),
+            })
+            paramSeq.append(params_n)
+            if verbose:
+                msg = f"Iteration: {n + 1:3d} of {cfg.max_em_iter:3d}, nPLL: = {float(pll):.4f}"
+                if cfg.inference_method == "variational":
+                    msg += f", VLB = {float(vlb):.4f}"
+                print(msg)
+
+        self.xdim, self.ydim, self.T, self.numTrials = xdim, ydim, T, R
+        self.trialDur = getattr(experiment, "trialDur", T * bin_size_ms)
+        self.binSize = bin_size_ms
+        self.maxEMiter = cfg.max_em_iter
+        self.EMmode = "Batch" if cfg.em_mode == BATCH else "Online"
+        self.inferenceMethod = cfg.inference_method
+        self.initParams = dict(initParams)
+        self.paramSeq = paramSeq
+        self.posteriorLikelihood = posteriorLikelihood
+        self.variationalLowerBound = variationalLowerBound
+        self.learningDetails = learningDetails
+        self.optimParams = dict(paramSeq[-1])
+        self.infRes = inf.to_reference_dict()
+        self._inf = inf
+        self.seenTrialIdx = seenTrialIdx
+        self.learningTime = np.asarray(learningTime)
+        self.inferenceTime = np.asarray(inferenceTime)
+        self._Y = Y
+
+        self.processParamResults()
+        self.performSpikeCountAnalysis()
+        if extractAllTraj:
+            self.extractTrajectories()
+        if extractAllTraj_trueParams:
+            self.extractTrajWithTrueParams()
+        if getPredictionErr:
+            self.leaveOneOutPrediction()
+
+    # -- post-processing (NumPy, on the host) ---------------------------------
+
+    def processParamResults(self):
+        """Per-iteration spike-count, subspace and magnitude diagnostics of
+        ``paramSeq[0 .. maxEMiter-1]`` (the init and the first
+        ``maxEMiter - 1`` iterates, as the reference indexes them)."""
+        from pgpfa_torch.diag.metrics import subspace_angle
+
+        it = self.maxEMiter
+        self.tauSeq = np.stack([self.paramSeq[i]["tau"] for i in range(it)], axis=1)
+        est = np.zeros((self.ydim, it))
+        for i in range(it):
+            Ci, di = self.paramSeq[i]["C"], self.paramSeq[i]["d"]
+            est[:, i] = self.T * np.exp(0.5 * np.diag(Ci @ Ci.T) + di)
+        self.expectedSpikeCountsEst = est
+        self.expectedSpikeCountsEstVar = est.var(axis=0)
+        self.sampleMeanSpikeCounts = self._Y.sum(axis=2).mean(axis=0)
+        self.sampleMeanSpikeCountsVar = float(np.var(self.sampleMeanSpikeCounts))
+        self.meanSquaredErrorOverTrueVariance_SM = [
+            float(np.sum((est[:, i] - self.sampleMeanSpikeCounts) ** 2)
+                  / self.numTrials / self.sampleMeanSpikeCountsVar)
+            for i in range(it)
+        ]
+        self.varESpkCountSampleMean_Ratios = (
+            self.expectedSpikeCountsEstVar / self.sampleMeanSpikeCountsVar)
+        if hasattr(self.experiment, "params"):
+            Ct = self.experiment.params["C"]
+            dt = np.ravel(self.experiment.params["d"])
+            true_est = self.T * np.exp(0.5 * np.diag(Ct @ Ct.T) + dt)
+            self.expectedSpikeCountsTrue = true_est
+            self.expectedSpikeCountsTrueVar = float(np.var(true_est))
+            self.varESpkCountTrue_Ratios = (
+                self.expectedSpikeCountsEstVar / self.expectedSpikeCountsTrueVar)
+            self.subspaceAngleC = [subspace_angle(Ct, self.paramSeq[i]["C"]) for i in range(it)]
+        self.CabsoluteValue = np.asarray([np.sum(self.paramSeq[i]["C"] ** 2) for i in range(it)])
+
+    def performSpikeCountAnalysis(self):
+        """Model-implied spike-count mean and covariance at the init, the
+        optimum and (simulated data) the truth, against the observed ones."""
+        from pgpfa_torch.diag.metrics import js_logdet_div, mean_cov_y_from_params
+
+        ey_i, eyy_i = mean_cov_y_from_params(self.initParams)
+        ey_o, eyy_o = mean_cov_y_from_params(self.optimParams)
+        raster = np.concatenate([self._Y[r] for r in range(self.numTrials)], axis=1)
+        ey_obs = raster.mean(axis=1)
+        eyy_obs = np.cov(raster)
+        self.E_y_init_params, self.E_yy_init_params = ey_i, eyy_i
+        self.E_y_optim_params, self.E_yy_optim_params = ey_o, eyy_o
+        self.E_y_obs, self.E_yy_obs = ey_obs, eyy_obs
+        nrm = np.linalg.norm(eyy_obs)
+        self.mean_err_optim_obs = float(np.sum((ey_obs - ey_o) ** 2) / np.var(ey_obs)
+                                        / self.numTrials)
+        self.mean_err_init_obs = float(np.sum((ey_obs - ey_i) ** 2) / np.var(ey_obs)
+                                       / self.numTrials)
+        self.cov_err_optim_obs = float(np.linalg.norm(eyy_obs - eyy_o) / nrm)
+        self.cov_err_init_obs = float(np.linalg.norm(eyy_obs - eyy_i) / nrm)
+        self.JSdiv_cov_optim_obs = js_logdet_div(eyy_o, eyy_obs)
+        self.JSdiv_cov_init_obs = js_logdet_div(eyy_i, eyy_obs)
+        if hasattr(self.experiment, "params"):
+            ey_t, eyy_t = mean_cov_y_from_params(self.experiment.params)
+            self.E_y_true_params, self.E_yy_true_params = ey_t, eyy_t
+            self.mean_err_optim_true = float(np.sum((ey_t - ey_o) ** 2) / np.var(ey_t)
+                                             / self.numTrials)
+            self.mean_err_init_true = float(np.sum((ey_t - ey_i) ** 2) / np.var(ey_t)
+                                            / self.numTrials)
+            self.cov_err_optim_true = float(np.linalg.norm(eyy_t - eyy_o) / nrm)
+            self.cov_err_init_true = float(np.linalg.norm(eyy_t - eyy_i) / nrm)
+            self.JSdiv_cov_optim_true = js_logdet_div(eyy_o, eyy_t)
+            self.JSdiv_cov_init_true = js_logdet_div(eyy_i, eyy_t)
+
+    def orthonormalizeTrajectories(self):
+        from pgpfa_torch.diag.metrics import orthonormalized_trajectories
+
+        self.x_tilde = orthonormalized_trajectories(self.optimParams["C"],
+                                                    to_numpy(self._inf.post_mean))
+
+    def _estep_all(self, params, method):
+        """A cold E-step of all trials at ``params`` on the fit's device."""
+        p = params_from_numpy(params, self.device, self.dtype)
+        cfg = self.config if method is None else dataclasses.replace(
+            self.config, inference_method=method)
+        Y = torch.as_tensor(self._Y, dtype=self.dtype, device=p.C.device)
+        return _estep(p.C, p.d, p.tau, Y, self.T, float(self.binSize), None, cfg)
+
+    def extractTrajectories(self, method: Optional[str] = None):
+        """Re-infer all trials at the optimal parameters."""
+        inf, pll, vlb, _ = self._estep_all(self.optimParams, method)
+        self._inf = inf
+        self.infRes = inf.to_reference_dict()
+        self.nll_all_traj = float(pll)
+        if self.inferenceMethod == "variational":
+            self.vlb_all_traj = float(vlb)
+
+    def extractTrajWithTrueParams(self, method: Optional[str] = None):
+        """Infer all trials at the dataset's true parameters."""
+        inf, pll, _, _ = self._estep_all(self.experiment.params, method)
+        self.infRes_trueParams = inf.to_reference_dict()
+        self.nll_trueParams_all_traj = float(pll)
+
+    def leaveOneOutPrediction(self):
+        """Leave-one-neuron-out predictions of all trials at the optimal
+        parameters (``y_pred_mode``, ``pred_err_mode``)."""
+        from pgpfa_torch.diag.loo import leave_one_out_prediction
+
+        self.y_pred_mode, self.pred_err_mode = leave_one_out_prediction(
+            self.optimParams, self._Y, float(self.binSize), self.device, self.dtype)
+
+    # -- plots (matplotlib, imported when drawn) --------------------------------
+
+    def plotTrajectory(self, trial: int = 0):
+        from pgpfa_torch.diag.plotting import plot_fit_trajectory
+
+        return plot_fit_trajectory(self, trial)
+
+    def plotTrajectories(self):
+        from pgpfa_torch.diag.plotting import plot_fit_trajectories
+
+        return plot_fit_trajectories(self)
+
+    def plotParamSeq(self):
+        from pgpfa_torch.diag.plotting import plot_param_seq
+
+        return plot_param_seq(self)
+
+    def plotFitDetails(self):
+        from pgpfa_torch.diag.plotting import plot_fit_details
+
+        return plot_fit_details(self)
+
+    def plotOptimParams(self):
+        from pgpfa_torch.diag.plotting import plot_optim_params
+
+        return plot_optim_params(self)
+
+    def plotParamComparison(self):
+        from pgpfa_torch.diag.plotting import plot_param_comparison
+
+        return plot_param_comparison(self)
+
+    def plotCovAnalysis(self):
+        from pgpfa_torch.diag.plotting import plot_cov_analysis
+
+        return plot_cov_analysis(self)
+
+    def plotLNOprediction(self, trialToPlot: int = 0, neuronToPlot: int = 0):
+        from pgpfa_torch.diag.plotting import plot_lno_prediction
+
+        return plot_lno_prediction(self, trialToPlot, neuronToPlot)

@@ -20,7 +20,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from pgpfa_torch.models.params import rbf_kernel
+from pgpfa_torch.convert import to_numpy
+from pgpfa_torch.models.params import Params, rbf_kernel
 from pgpfa_torch.models.poisson_gpfa import hessian_weights, linear_predictor
 from pgpfa_torch.ops.blockmat import (
     assemble_hessian,
@@ -42,6 +43,16 @@ class InfRes(NamedTuple):
     trial_obj: torch.Tensor  # (R,) converged objective values
     newton_iters: torch.Tensor  # (R,) iterations used per trial
 
+    def to_reference_dict(self) -> dict:
+        """The reference's ``infRes`` layout: per-trial lists of NumPy
+        arrays, ``post_vsmGP`` as ``(T, T, xdim)``."""
+        return {
+            "post_mean": list(to_numpy(self.post_mean)),
+            "post_vsm": list(to_numpy(self.post_vsm)),
+            "post_vsmGP": [v.transpose(1, 2, 0) for v in to_numpy(self.post_vsm_gp)],
+            "post_cov": None if self.post_cov is None else list(to_numpy(self.post_cov)),
+        }
+
 
 def _where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch.where`` with a per-trial ``(R,)`` mask broadcast over ``a``'s
@@ -51,7 +62,9 @@ def _where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 
 def _newton_solve(Y, X0, C, d, Kinv, weights, gtol, maxiter, max_backtracks=30):
     """Damped Newton for all trials at once. ``Y (R, ydim, T)``,
-    ``X0 (R, xdim, T)``. Returns ``(X, f, it, W, L32)`` per trial.
+    ``X0 (R, xdim, T)``, per-neuron likelihood ``weights`` ``(ydim,)`` shared
+    by all lanes or ``(R, ydim)``, one row per lane. Returns
+    ``(X, f, it, W, L32)`` per trial.
 
     Termination per trial: gradient inf-norm <= gtol, or Newton decrement
     ``g^T H^{-1} g <= dec_tol``, or a rejected step; in f32 also an accepted
@@ -61,7 +74,7 @@ def _newton_solve(Y, X0, C, d, Kinv, weights, gtol, maxiter, max_backtracks=30):
     """
     R, xdim, T = X0.shape
     D = xdim * T
-    w = weights[:, None]
+    w = weights[..., None]
     t_min = 0.5**max_backtracks
     f64 = X0.dtype == torch.float64
     # the f64 values are out of f32's reach
@@ -156,7 +169,8 @@ def laplace_estep_from_arrays(
         C, d, tau: model parameters (tensors on one device, f64 or f32).
         Y: spike counts ``(R, ydim, T)``.
         x_init: warm-start modes ``(R, xdim, T)`` (zeros if None).
-        weights: optional per-neuron weights ``(ydim,)`` (1 = keep).
+        weights: optional per-neuron weights ``(ydim,)``, or ``(R, ydim)``
+            one row per trial (1 = keep).
         compute_cov: keep the full ``(R, xdim*T, xdim*T)`` posterior covariance.
 
     Returns:
@@ -191,3 +205,8 @@ def laplace_estep_from_arrays(
         newton_iters=iters,
     )
     return res, -obj.mean()
+
+
+def laplace_estep(params: Params, Y, T: int, bin_size_ms: float, **kw):
+    """:func:`laplace_estep_from_arrays` taking a :class:`Params`."""
+    return laplace_estep_from_arrays(params.C, params.d, params.tau, Y, T, bin_size_ms, **kw)

@@ -138,6 +138,26 @@ def neuron_grad_hess(theta, Y, means, vsms):
     return mom.grad_hess(theta, mom.rates(theta))
 
 
+def _scatter_blocks(Hb: torch.Tensor) -> torch.Tensor:
+    """Per-neuron blocks ``(ydim, q, q)`` as the dense ``(q*ydim, q*ydim)``
+    matrix over a vector whose entry ``i*ydim + n`` is neuron ``n``'s
+    ``i``-th parameter: ``H[i*ydim + n, j*ydim + n] = Hb[n, i, j]``."""
+    ydim, q = Hb.shape[0], Hb.shape[1]
+    blocks = torch.diag_embed(Hb.permute(1, 2, 0))  # [i, j, n, n]
+    return blocks.permute(0, 2, 1, 3).reshape(q * ydim, q * ydim)
+
+
+def cd_hessian(vec, Y, means, vsms) -> torch.Tensor:
+    """Exact dense Hessian of :func:`cd_cost` over the packed vector ``vec``
+    (:func:`pack_cd` order: entry ``i*ydim + n`` is ``C[n, i]``, or ``d[n]``
+    at ``i = xdim``). The cost is a sum of per-neuron costs, so the Hessian
+    is the per-neuron blocks of :func:`neuron_grad_hess` scattered into that
+    layout, zero elsewhere."""
+    C, d = unpack_cd(vec, means.shape[1], Y.shape[1])
+    _, H = neuron_grad_hess(torch.cat([C, d[:, None]], dim=1), Y, means, vsms)
+    return _scatter_blocks(H)
+
+
 def learn_cd_newton(Y, means, vsms, C0, d0,
                     prior_blocks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     n_iter: int = 10) -> CdResult:
@@ -249,12 +269,9 @@ def c_only_grad_hess(vC, d, Y, means, vsms):
     """Gradient ``(xdim*ydim,)`` and dense Hessian ``(xdim*ydim, xdim*ydim)``
     of :func:`c_only_cost` in ``vC`` order. With ``d`` fixed the cost
     separates per neuron, so the Hessian is the per-neuron ``H_cc`` blocks
-    scattered to ``H[k*ydim + n, l*ydim + n] = H_cc[n, k, l]``, zero
-    elsewhere."""
+    scattered by :func:`_scatter_blocks`, zero elsewhere."""
     ydim = d.shape[0]
     xdim = vC.shape[0] // ydim
     theta = torch.cat([vC.reshape(xdim, ydim).T, d[:, None]], dim=1)
     g, H = neuron_grad_hess(theta, Y, means, vsms)
-    blocks = torch.diag_embed(H[:, :xdim, :xdim].permute(1, 2, 0))  # [k, l, n, n]
-    dense = blocks.permute(0, 2, 1, 3).reshape(xdim * ydim, xdim * ydim)
-    return g[:, :xdim].T.reshape(-1), dense
+    return g[:, :xdim].T.reshape(-1), _scatter_blocks(H[:, :xdim, :xdim])

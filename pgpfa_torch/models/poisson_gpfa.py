@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from pgpfa_torch.ops.blockmat import assemble_hessian
+
 
 def linear_predictor(C: torch.Tensor, d: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """``A = C X + d``, shape ``(..., ydim, T)``."""
@@ -34,3 +36,17 @@ def hessian_weights(C: torch.Tensor, expA: torch.Tensor) -> torch.Tensor:
     CC = (C[:, :, None] * C[:, None, :]).reshape(ydim, xdim * xdim)
     W = expA.transpose(-1, -2) @ CC
     return W.reshape(*W.shape[:-1], xdim, xdim)
+
+
+def neg_log_posterior_grad(X, Y, C, d, Kinv) -> torch.Tensor:
+    """Gradient of :func:`neg_log_posterior` in ``X``, shape ``(..., xdim, T)``:
+    ``C^T (exp(A) - Y) + K^{-1} x``."""
+    resid = torch.exp(linear_predictor(C, d, X)) - Y
+    return C.T @ resid + torch.einsum("ktu,...ku->...kt", Kinv, X)
+
+
+def neg_log_posterior_hess(X, Y, C, d, Kinv) -> torch.Tensor:
+    """Dense Hessian of :func:`neg_log_posterior` in the latent-major
+    flattened ``X``, shape ``(..., xdim*T, xdim*T)``."""
+    W = hessian_weights(C, torch.exp(linear_predictor(C, d, X)))
+    return assemble_hessian(W, Kinv)

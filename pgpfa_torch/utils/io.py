@@ -1,4 +1,5 @@
-"""Persistence: pickled variables and fit checkpoints (NumPy only).
+"""Persistence (pickled variables and fit checkpoints) and console helpers,
+NumPy only.
 
 Twin of ``pgpfa/utils/io.py`` (kept here so that nothing in the port imports
 the JAX package): the same ``.npz`` keys, so a checkpoint written by either
@@ -11,7 +12,9 @@ from __future__ import annotations
 
 import os
 import pickle
-from typing import Any
+import sys
+import time
+from typing import Any, Optional
 
 import numpy as np
 
@@ -63,3 +66,58 @@ def load_checkpoint(filename: str) -> dict:
             "rng_key": blob["rng_key"] if "rng_key" in blob else None,
             "extra": {k[6:]: blob[k] for k in blob.files if k.startswith("extra_")},
         }
+
+
+def print_options_banner(title: str, rows) -> None:
+    """ASCII options box of ``(label, value)`` rows."""
+    width = 55
+    print("+" + f" {title} ".center(width, "-") + "+")
+    for label, value in rows:
+        body = f" {label}: "
+        val = f"{value} "
+        pad = width - len(body) - len(val)
+        print("|" + body + " " * max(pad, 1) + val + "|")
+    print("+" + "-" * width + "+")
+
+
+class Printer:
+    """One-line-rewrite progress printer."""
+
+    def __init__(self, data):
+        sys.stdout.write("\r\x1b[K" + str(data))
+        sys.stdout.flush()
+
+    @staticmethod
+    def stdout(message: str):
+        sys.stdout.write(message)
+        sys.stdout.write("\b" * len(message))
+
+
+_TIC: Optional[float] = None
+
+
+def tic():
+    """Start the :func:`toc` clock."""
+    global _TIC
+    _TIC = time.time()
+
+
+def toc():
+    """Print the seconds since :func:`tic`."""
+    if _TIC is None:
+        print("Toc: start time not set")
+    else:
+        print(f"Elapsed time is {time.time() - _TIC} seconds.")
+
+
+def stars(p: float) -> str:
+    """Significance glyphs of a p-value."""
+    if p < 0.0001:
+        return "****"
+    if p < 0.001:
+        return "***"
+    if p < 0.01:
+        return "**"
+    if p < 0.05:
+        return "*"
+    return "-"

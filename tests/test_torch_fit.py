@@ -110,5 +110,13 @@ def test_public_surface():
     for name in ("dataset", "initialize_params", "stevenson_surrogate", "Params", "FitConfig",
                  "FitResult", "fit", "params_from_numpy", "draw_batch_indices",
                  "ONLINE_UPDATE_METHODS", "fit_loop", "posterior_mcmc",
-                 "posterior_mcmc_from_arrays", "posterior_mcmc_batched", "ESSResult"):
+                 "posterior_mcmc_from_arrays", "posterior_mcmc_batched", "ESSResult",
+                 "PPGPFAfit", "crossValidation", "split_train_test", "leave_one_out_prediction",
+                 "subspace_angle", "js_logdet_div", "mean_cov_y_from_params", "cd_error_bars",
+                 "mvnpdf", "mvnpdf_use_inv_cov", "orthonormalized_trajectories",
+                 "subsample_trials", "seen_trials", "laplace_estep", "laplace_estep_from_arrays",
+                 "pack_cd", "unpack_cd", "leaveOneOutPrediction", "subspaceAngle",
+                 "JSLogdetDiv", "getMeanCovYfromParams", "splitTrainingTestDataset",
+                 "subsampleTrials", "seenTrials", "initializeParams"):
         assert hasattr(pgpfa_torch, name)
+        assert name in pgpfa_torch.__all__
