@@ -86,12 +86,31 @@ Phases (any failure raises and the exit code is not 0):
     unpadded equal to the padded one to 1e-8. (d) ``cd_error_bars`` at the
     fitted parameters, card against CPU to 1e-8. ``chol32`` is also timed
     at the chunk shape.
+13. longt: the banded long-trial path on the JAX package's long-trial
+    workload (``scripts/bench_longt.py``: 16 trials x 30 neurons, xdim 2,
+    10 ms bins, tau (0.05, 0.08) s, blocks of 50 bins, latents drawn from
+    the GP prior with seed 0; ``pgpfa_torch.data.longt`` draws the same
+    data). (a) At T = 1000 and the true parameters: one banded Laplace
+    E-step on the card against the CPU, and against the card's dense
+    E-step (D = 2000, chol32's wide path). (b) One warm-up and 3 timed
+    banded Laplace EM iterations at T = 1000, 1 timed at T = 4000 (the same
+    block shapes, so no second warm-up), and the dense path's 3 at T = 1000
+    beside them; ``chol32`` and ``ns_step`` must launch at (16, 100, 100);
+    then, at the fitted T = 1000 parameters, blocks of 50 against 100 and
+    the modes' gradient. (c) Banded dual VI at T = 1000 (``vi_maxiter`` 60,
+    warm 40): one E-step of the first trial on the card against the CPU,
+    then a 2-iteration fit of all 16 trials timed per iteration (cold,
+    warm). (d) Online ``'diag'`` banded, batch 4, 2 iterations card
+    against CPU, iteration 2 also against the CPU's E-step at the card's
+    parameters. (e) One warm banded Laplace iteration at T = 1000 timed by
+    phase.
 
 The last three lines of standard output are one JSON object with the
 kernels' numbers, the ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
 import json
 import subprocess
 import time
@@ -210,6 +229,27 @@ DIAG_DEV_TOL = 1e-8
 # The 20 lanes held card against CPU: trial 0 neurons 0-9 and trial 57
 # neurons 40-49 (the CPU factors each (700, 700) Hessian in tens of ms).
 LOO_CPU_LANES = list(range(10)) + list(range(57 * 90 + 40, 57 * 90 + 50))
+# The long-trial phase. The banded Laplace E-step runs a fixed 12 Newton
+# bodies, each accepting a candidate only where the f64 objective (~1.6e3 per
+# trial) falls: a trial's mode freezes where the decrease of a step drops
+# below the objective's rounding, at a gradient of up to ~1e-6, and two
+# factorizations of different rounding freeze it at different points. On the
+# CPU at T = 1000 (true parameters) the JAX package's modes and the port's
+# differ by 4.6e-7 (nPLL 1.3e-11 relative), and the port's banded modes and
+# its dense E-step's by 4.6e-7 (nPLL 1.9e-11, post_vsm 7.4e-9). Card against
+# CPU and banded against the card's dense E-step (D = 2000): nPLL 1e-9 and
+# 1e-7 relative, modes 5e-6 (ten times the stall's measured spread),
+# post_vsm 1e-7 (the banding drops ~1.5e-9 at s = 50, tau <= 0.08 s). Blocks
+# of 50 against 100: nPLL 1e-9 relative (tests/test_longt.py). The modes'
+# gradient at the fitted parameters below 1e-6 (tests/test_longt.py; 4.3e-7
+# measured on a CPU). Banded VI card against CPU: bound and nPLL 1e-8
+# relative (the L-BFGS accept tests tie on rounding near the optimum).
+LONGT_DEV_PLL_REL = 1e-9
+LONGT_DEV_MEAN = 5e-6
+LONGT_DENSE_PLL_REL, LONGT_DENSE_MEAN, LONGT_DENSE_VSM = 1e-7, 5e-6, 1e-7
+LONGT_BLOCK_PLL_REL = 1e-9
+LONGT_GRAD = 1e-6
+LONGT_VI_REL = 1e-8
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -311,9 +351,11 @@ def phase_kernels():
     # not a multiple of 32 or 128, the online minibatch's Hessians
     # (10, 700, 700), the online C-only 'grad' system (1, 450, 450), the
     # MCMC prior factor of bench.py's synthetic rows (2, 50, 50) and the
-    # leave-one-out scoring of the CV sweep's 2 test trials (180, 700, 700).
+    # leave-one-out scoring of the CV sweep's 2 test trials (180, 700, 700),
+    # and the banded long-trial path's posterior blocks (16, 100, 100) and
+    # tau lanes (4, 50, 50).
     for B, D in [(100, 700), (5, 140), (10, 140), (90, 6), (4, 260), (10, 700), (1, 450),
-                 (2, 50), (180, 700)]:
+                 (2, 50), (180, 700), (16, 100), (4, 50)]:
         A = spd(B, D, 0.5, seed=B * 1000 + D)
         L, Lp = chol32(A), chol32_plain(A)
         torch.cuda.synchronize()
@@ -337,9 +379,11 @@ def phase_kernels():
     # from 2 x 4 to 8 x 4 register tiles (D > 256) alone and batched, the
     # path's width at a batch of 100, and (correctness
     # only) the widest prior block chol32 factors, where a block owns two row
-    # tiles. Each timed shape is also run on inputs one float into their
+    # tiles, and the banded long-trial path's (16, 100, 100) and
+    # (4, 50, 50). Each timed shape is also run on inputs one float into their
     # buffers (the 4-byte copy path), which must give the same result.
-    for B, D in [(5, 140), (100, 700), (4, 260), (100, 400), (100, 140), (2, 1792)]:
+    for B, D in [(5, 140), (100, 700), (4, 260), (100, 400), (100, 140), (2, 1792), (16, 100),
+                 (4, 50)]:
         H = spd(B, D, 1.0, seed=D + 1)
         H64 = H.double()
         X = (0.9 * torch.cholesky_inverse(torch.linalg.cholesky(H64))).float().contiguous()
@@ -1352,6 +1396,182 @@ def phase_diag(rows):
     return total
 
 
+def phase_longt():
+    """The banded long-trial path (see the module docstring, phase 13).
+    Returns the launches of (b)'s timed banded fits, summed."""
+    from pgpfa_torch import FitConfig, fit, fit_loop
+    from pgpfa_torch.data.longt import BIN_MS, BLOCK, TRIALS, long_trial_problem
+    from pgpfa_torch.em.fit import _estep, _learn_tau_from_inf, draw_batch_indices
+    from pgpfa_torch.infer.laplace import laplace_estep_from_arrays
+    from pgpfa_torch.infer.laplace_longt import laplace_estep_banded
+    from pgpfa_torch.infer.variational_longt import vi_estep_banded
+    from pgpfa_torch.learn.mstep_obs import learn_cd
+    from pgpfa_torch.ops.cuda_kernels import chol32, ns_step
+
+    t_phase = time.time()
+    t0 = time.time()
+    data = {T: long_trial_problem(T) for T in (1000, 4000)}
+    log(f"longt data: Y {data[1000][3].shape} and {data[4000][3].shape}, {time.time() - t0:.1f} s")
+    T = 1000
+    C, d, tau, Y = data[T]
+    card = tuple(torch.as_tensor(a, device="cuda") for a in (C, d, tau, Y))
+    host = tuple(torch.as_tensor(a) for a in (C, d, tau, Y))
+    m = BLOCK * C.shape[1]
+
+    def timed_call(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    # (a) one E-step at the true parameters: card against CPU and dense
+    reset_counts()
+    (band, pll), t_card = timed_call(lambda: laplace_estep_banded(*card, T, BIN_MS, BLOCK))
+    shapes = {k.__name__: dict(sorted(k.launches_by_shape.items())) for k in (chol32, ns_step)}
+    t0 = time.time()
+    band_h, pll_h = laplace_estep_banded(*host, T, BIN_MS, BLOCK)
+    t_cpu = time.time() - t0
+    rel = abs(float(pll) - float(pll_h)) / abs(float(pll_h))
+    dm = float((band.post_mean.cpu() - band_h.post_mean).abs().max())
+    log(f"longt E-step T={T}: nPLL card {float(pll):.10f} CPU {float(pll_h):.10f}, relative "
+        f"{rel:.3e} (tolerance {LONGT_DEV_PLL_REL:.0e}); modes {dm:.3e} (tolerance "
+        f"{LONGT_DEV_MEAN:.0e}); gradient card {float(band.grad_norm.max()):.3e} CPU "
+        f"{float(band_h.grad_norm.max()):.3e}; {t_card:.3f} s card, {t_cpu:.2f} s CPU; "
+        f"launches by (B, D) {shapes}")
+    if not (rel <= LONGT_DEV_PLL_REL and dm <= LONGT_DEV_MEAN):
+        raise RuntimeError("longt: the banded E-step on the card disagrees with the CPU")
+    reset_counts()
+    (dense, pll_d), t_dense = timed_call(
+        lambda: laplace_estep_from_arrays(*card, T, BIN_MS, compute_cov=False))
+    n_wide = chol32.launches_by_shape[(TRIALS, 2 * T)]
+    rel = abs(float(pll_d) - float(pll)) / abs(float(pll_d))
+    dm = float((dense.post_mean - band.post_mean).abs().max())
+    dv = float((dense.post_vsm - band.post_vsm).abs().max())
+    log(f"longt banded vs dense E-step (D = {2 * T}, chol32 wide path, {n_wide} launches at "
+        f"({TRIALS}, {2 * T})): nPLL relative {rel:.3e} (tolerance {LONGT_DENSE_PLL_REL:.0e}), "
+        f"modes {dm:.3e} ({LONGT_DENSE_MEAN:.0e}), post_vsm {dv:.3e} ({LONGT_DENSE_VSM:.0e}); "
+        f"dense {t_dense:.3f} s ({int(dense.newton_iters.max())} Newton bodies)")
+    if not (rel <= LONGT_DENSE_PLL_REL and dm <= LONGT_DENSE_MEAN and dv <= LONGT_DENSE_VSM
+            and n_wide > 0):
+        raise RuntimeError("longt: the banded E-step disagrees with the dense one")
+    del dense
+
+    # (b) timed banded EM at T = 1000 and 4000, and the dense path at 1000.
+    # T = 4000 runs the same block shapes as T = 1000, whose warm-up serves
+    # both; it takes one timed iteration (depth cut: ~9 s each on the card)
+    total = {"chol32": 0, "ns_step": 0}
+    sec, fits = {}, {}
+    for Tn, n_iter in ((1000, 3), (4000, 1)):
+        Cn, dn, taun, Yn = data[Tn]
+        init = {"C": Cn, "d": dn, "tau": taun}
+        cfg = FitConfig(max_em_iter=n_iter, time_block=BLOCK)
+        if Tn == 1000:
+            fit(init, Yn, BIN_MS, dataclasses.replace(cfg, max_em_iter=1), device="cuda")
+        reset_counts()
+        res, wall = timed_call(lambda: fit(init, Yn, BIN_MS, cfg, device="cuda"))
+        counts = read_counts()
+        n16 = {k.__name__: k.launches_by_shape[(TRIALS, m)] for k in (chol32, ns_step)}
+        for k in total:
+            total[k] += counts[k]
+        sec[Tn], fits[Tn] = wall / n_iter, res
+        pll_n = res.post_loglik.cpu().numpy()
+        log(f"longt banded EM T={Tn}: {wall:.3f} s for {n_iter} iterations = {sec[Tn]:.4f} "
+            f"s/EM-iteration; nPLL {pll_n.tolist()}; tau {res.tau_seq.tolist()}; tau_niter "
+            f"{res.tau_niter.tolist()}; launches {counts}, at ({TRIALS}, {m}, {m}) {n16}")
+        if not (np.all(np.isfinite(pll_n)) and bool((res.tau_seq > 0).all())
+                and all(v > 0 for v in n16.values())):
+            raise RuntimeError(f"longt T={Tn}: nPLL not finite, tau not positive, or a kernel "
+                               f"not launched at ({TRIALS}, {m}, {m})")
+    init = {"C": C, "d": d, "tau": tau}
+    fit(init, Y, BIN_MS, FitConfig(max_em_iter=1), device="cuda")  # warm-up
+    dres, wall = timed_call(lambda: fit(init, Y, BIN_MS, FitConfig(max_em_iter=3), device="cuda"))
+    sec["dense"] = wall / 3
+    log(f"longt row: {json.dumps({'metric': 'long-trial banded EM iteration (T=1000, s=50, 30n x 16tr)', 'value': sec[1000], 'unit': 's/EM-iteration', 'T4000': sec[4000], 'time_ratio_T4000_vs_T1000': sec[4000] / sec[1000], 'dense_same_T': sec['dense'], 'vs_dense_same_T': sec['dense'] / sec[1000]})}")
+    log(f"longt dense EM T=1000: nPLL {dres.post_loglik.tolist()} (banded "
+        f"{fits[1000].post_loglik.tolist()})")
+
+    # (a, continued) at the fitted T = 1000 parameters: blocks of 50 and
+    # 100, and the modes' gradient
+    r = fits[1000]
+    band50, pll50 = laplace_estep_banded(r.C, r.d, r.tau, card[3], T, BIN_MS, BLOCK)
+    band100, pll100 = laplace_estep_banded(r.C, r.d, r.tau, card[3], T, BIN_MS, 2 * BLOCK)
+    rel = abs(float(pll100) - float(pll50)) / abs(float(pll50))
+    gn = float(band50.grad_norm.max())
+    log(f"longt at the fitted parameters: blocks of {BLOCK} vs {2 * BLOCK} nPLL relative "
+        f"{rel:.3e} (tolerance {LONGT_BLOCK_PLL_REL:.0e}), modes "
+        f"{float((band100.post_mean - band50.post_mean).abs().max()):.3e}; gradient max "
+        f"{gn:.3e} (tolerance {LONGT_GRAD:.0e})")
+    if not (rel <= LONGT_BLOCK_PLL_REL and gn < LONGT_GRAD):
+        raise RuntimeError("longt: block size changes the nPLL, or the modes are not converged")
+
+    # (c) banded dual VI at T = 1000: the E-step of the first trial card
+    # against CPU (the card's time does not depend on the trial count, the
+    # path is launch-bound), then a 2-iteration fit timed per iteration (the
+    # first cold, 60 L-BFGS iterations; the second warm, 40)
+    vcfg = FitConfig(inference_method="variational", time_block=BLOCK, vi_maxiter=60,
+                     vi_maxiter_warm=40, max_em_iter=2)
+    (vc, pc, bc, _), t_card = timed_call(lambda: vi_estep_banded(
+        *card[:3], card[3][:1], T, BIN_MS, BLOCK, maxiter=60))
+    t0 = time.time()
+    vh, ph, bh, _ = vi_estep_banded(*host[:3], host[3][:1], T, BIN_MS, BLOCK, maxiter=60)
+    t_cpu = time.time() - t0
+    rb = abs(float(bc) - float(bh)) / abs(float(bh))
+    rp = abs(float(pc) - float(ph)) / abs(float(ph))
+    log(f"longt VI E-step, first trial: bound card {float(bc):.10f} CPU {float(bh):.10f}, "
+        f"relative {rb:.3e}; nPLL relative {rp:.3e} (tolerance {LONGT_VI_REL:.0e}); "
+        f"{t_card:.3f} s card, {t_cpu:.2f} s CPU")
+    if not (rb <= LONGT_VI_REL and rp <= LONGT_VI_REL):
+        raise RuntimeError("longt: the banded VI E-step on the card disagrees with the CPU")
+    vres = fit_loop(init, Y, BIN_MS, vcfg, device="cuda", record_iter_sec=True)
+    vlb = vres.var_lower_bound.cpu().numpy()
+    log(f"longt banded VI EM T={T}: s per iteration {vres.iter_sec.tolist()} (cold, warm); "
+        f"bound {vlb.tolist()}; nPLL {vres.post_loglik.tolist()}")
+    if not (np.all(np.isfinite(vlb)) and bool((vres.tau > 0).all())):
+        raise RuntimeError("longt: the banded VI bound is not finite")
+
+    # (d) online 'diag', banded, batch 4: card against CPU
+    ocfg = FitConfig(em_mode="online", batch_size=4, max_em_iter=2, time_block=BLOCK)
+    idx = draw_batch_indices(TRIALS, 4, 2, seed=0)
+    g, t_card = timed_call(lambda: fit(init, Y, BIN_MS, ocfg, device="cuda", batch_indices=idx))
+    t0 = time.time()
+    c = fit(init, Y, BIN_MS, ocfg, device="cpu", batch_indices=idx)
+    t_cpu = time.time() - t0
+    pg, pc = g.post_loglik.cpu().numpy(), c.post_loglik.numpy()
+    d1, d2 = abs(pg[0] - pc[0]) / abs(pc[0]), abs(pg[1] - pc[1])
+    dp = max(float((getattr(g, n).cpu() - getattr(c, n)).abs().max())
+             for n in ("C_seq", "d_seq", "tau_seq"))
+    # iteration 2 starts from parameters that differ by the M-steps' ties
+    # (dp, held as in phase 9); at this width its nPLL moves far more with
+    # them than the Stevenson surrogate's (9.1e-4 for parameters 9.5e-7 apart
+    # on an H100), so it is held on identical inputs: the CPU's E-step at the
+    # card's parameters
+    _, p2, _, _ = _estep(g.C_seq[0].cpu(), g.d_seq[0].cpu(), g.tau_seq[0].cpu(),
+                         host[3][idx[1]], T, BIN_MS, None, ocfg)
+    r2 = abs(pg[1] - float(p2)) / abs(float(p2))
+    log(f"longt online 'diag' banded, batch 4: card vs CPU post_loglik iteration 1 {d1:.3e} "
+        f"relative (tolerance {ONLINE_DEV_PLL1_REL:.0e}); parameters {dp:.3e} "
+        f"({ONLINE_DEV_PARAM_TOL:.0e}); iteration 2 {d2:.3e} apart, and {r2:.3e} relative "
+        f"from the CPU's E-step at the card's parameters ({ONLINE_DEV_PLL1_REL:.0e}); "
+        f"{t_card:.3f} s card, {t_cpu:.2f} s CPU")
+    if not (d1 <= ONLINE_DEV_PLL1_REL and dp <= ONLINE_DEV_PARAM_TOL
+            and r2 <= ONLINE_DEV_PLL1_REL):
+        raise RuntimeError("longt: online banded EM on the card disagrees with the CPU")
+
+    # (e) one warm banded Laplace iteration at the fitted parameters, by phase
+    cfg = FitConfig(time_block=BLOCK)
+    (inf, _), t_e = timed_call(lambda: laplace_estep_banded(
+        r.C, r.d, r.tau, card[3], T, BIN_MS, BLOCK, x_init=band50.post_mean))
+    cd, t_cd = timed_call(lambda: learn_cd(card[3], inf.post_mean, inf.post_vsm, r.C, r.d,
+                                           maxiter=cfg.cd_newton_iters))
+    tr, t_tau = timed_call(lambda: _learn_tau_from_inf(inf, r.tau, BIN_MS, cfg))
+    log(f"longt phase split (one warm banded Laplace iteration, T={T}, "
+        f"{t_e + t_cd + t_tau:.4f} s): E-step {t_e:.4f} s, (C, d) M-step {t_cd:.4f} s, "
+        f"tau M-step {t_tau:.4f} s ({tr.niter.tolist()} secant steps accepted)")
+    log(f"longt phase: {time.time() - t_phase:.1f} s")
+    return total
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1365,6 +1585,7 @@ def main():
     launches_mcmc = phase_mcmc()
     launches_checkpoint = phase_checkpoint()
     launches_diag = phase_diag(rows)
+    launches_longt = phase_longt()
 
     kernels = []
     for name, src, replaces, (B, D) in [
@@ -1378,6 +1599,7 @@ def main():
                         "launches_mcmc": launches_mcmc[name],
                         "launches_checkpoint": launches_checkpoint[name],
                         "launches_diag": launches_diag[name],
+                        "launches_longt": launches_longt[name],
                         **rows[(name, B, D)],
                         "shapes": [r for (n, _, _), r in rows.items() if n == name]})
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,9 @@
 A port of the JAX package ``pgpfa`` (which stays the reference): batch and
 online EM (all six online update rules, ``FitConfig(em_mode="online")``)
 with the Laplace or the dual variational E-step (dual-Newton or L-BFGS
-solver), with checkpoint and resume (``fit_loop``); the reference-compatible
+solver), dense or, for long trials, on banded block-tridiagonal algebra
+(``FitConfig(time_block=...)``), with checkpoint and resume
+(``fit_loop``); the reference-compatible
 class driver ``PPGPFAfit`` with its fit diagnostics, leave-one-neuron-out
 prediction (``leave_one_out_prediction``) and the cross-validated
 latent-dimension sweep (``crossValidation``); and elliptical-slice MCMC of

@@ -35,8 +35,10 @@ from pgpfa_torch.convert import params_from_numpy, to_numpy
 from pgpfa_torch.data.init import initialize_params
 from pgpfa_torch.data.synthetic import stack_experiment
 from pgpfa_torch.infer.laplace import InfRes, laplace_estep_from_arrays
+from pgpfa_torch.infer.laplace_longt import BandedInfRes, laplace_estep_banded
 from pgpfa_torch.infer.variational import SOLVERS, vi_estep_from_arrays
-from pgpfa_torch.learn.mstep_gp import learn_tau
+from pgpfa_torch.infer.variational_longt import vi_estep_banded
+from pgpfa_torch.learn.mstep_gp import learn_tau, learn_tau_banded
 from pgpfa_torch.learn.mstep_obs import (
     c_only_cost,
     c_only_grad_hess,
@@ -75,6 +77,12 @@ class FitConfig:
     TPU worker, and at the Stevenson width picks Newton; there is no such
     crash on the card, so the port takes the solver as given and ``'auto'``
     raises.
+
+    ``time_block`` (bins; ``None`` for the dense path) selects the banded
+    long-trial E-steps and tau M-step: it must divide T and satisfy
+    ``time_block * bin >~ 6 max(tau)``. The banded Laplace E-step runs
+    ``banded_newton_iters`` Newton bodies; the banded variational E-step
+    always uses L-BFGS. The banded path runs in f64 only.
     """
 
     inference_method: str = "laplace"
@@ -96,7 +104,8 @@ class FitConfig:
     vi_gtol: float = 1e-8
     vi_solver: str = "newton"
     eps_noise: float = 0.001
-    time_block: Optional[int] = None
+    time_block: Optional[int] = None  # banded long-trial path: block size in bins
+    banded_newton_iters: int = 12
 
     def __post_init__(self):
         if self.inference_method not in ("laplace", "variational"):
@@ -107,8 +116,6 @@ class FitConfig:
             raise ValueError(f"unknown em_mode {self.em_mode!r}")
         if self.online_update not in ONLINE_UPDATE_METHODS:
             raise ValueError(f"unknown online_update {self.online_update!r}")
-        if self.time_block is not None:
-            raise NotImplementedError("the banded long-trial path (time_block) is not ported yet")
 
 
 class FitResult(NamedTuple):
@@ -134,30 +141,49 @@ class FitResult(NamedTuple):
 
 
 def _estep(C, d, tau, Y, T, bin_size_ms, warm, cfg: FitConfig):
-    """E-step of either method; returns ``(inf, post_loglik, vlb, warm_new)``.
-    ``warm is None`` marks the cold first E-step, which for variational
-    inference takes the cold budget ``vi_maxiter``."""
+    """E-step of either method, dense or banded (``cfg.time_block``);
+    returns ``(inf, post_loglik, vlb, warm_new)``. ``warm is None`` marks
+    the cold first E-step, which for variational inference takes the cold
+    budget ``vi_maxiter``."""
+    vi_maxiter = cfg.vi_maxiter if warm is None else cfg.vi_maxiter_warm
     if cfg.inference_method == "laplace":
+        if cfg.time_block is not None:
+            inf, pll = laplace_estep_banded(
+                C, d, tau, Y, T, bin_size_ms, cfg.time_block,
+                x_init=warm, maxiter=cfg.banded_newton_iters, eps_noise=cfg.eps_noise)
+            return inf, pll, torch.zeros_like(pll), inf.post_mean
         inf, pll = laplace_estep_from_arrays(
             C, d, tau, Y, T, bin_size_ms,
             x_init=warm, gtol=cfg.newton_gtol, maxiter=cfg.newton_maxiter,
             compute_cov=False, eps_noise=cfg.eps_noise,
         )
         return inf, pll, torch.zeros_like(pll), inf.post_mean
+    if cfg.time_block is not None:
+        return vi_estep_banded(
+            C, d, tau, Y, T, bin_size_ms, cfg.time_block,
+            rho_init=warm, maxiter=vi_maxiter, eps_noise=cfg.eps_noise)
     return vi_estep_from_arrays(
         C, d, tau, Y, T, bin_size_ms,
-        rho_init=warm, gtol=cfg.vi_gtol,
-        maxiter=cfg.vi_maxiter if warm is None else cfg.vi_maxiter_warm,
+        rho_init=warm, gtol=cfg.vi_gtol, maxiter=vi_maxiter,
         compute_cov=False, eps_noise=cfg.eps_noise, solver=cfg.vi_solver,
     )
+
+
+def _learn_tau_from_inf(inf, tau, bin_size_ms, cfg: FitConfig, prior=None):
+    """Tau M-step from dense or banded posterior moments. The banded one
+    never forms the dense ``(xdim, T, T)`` PautoSum; its secant optimizer
+    gets at least 12 iterations."""
+    if isinstance(inf, BandedInfRes):
+        return learn_tau_banded(inf.post_mean, inf.vsm_gp_diag, inf.vsm_gp_off, tau, bin_size_ms,
+                                prior=prior, eps=cfg.eps_noise, maxiter=max(cfg.tau_maxiter, 12))
+    return learn_tau(inf.post_mean, inf.post_vsm_gp, tau, bin_size_ms, prior=prior,
+                     eps=cfg.eps_noise, maxiter=cfg.tau_maxiter)
 
 
 def _mstep_full(C, d, tau, Y, inf: InfRes, bin_size_ms, cfg: FitConfig):
     """Unregularized M-step: (C, d) then tau, both from the E-step moments."""
     cd = learn_cd(Y, inf.post_mean, inf.post_vsm, C, d, maxiter=cfg.cd_newton_iters)
-    tr = learn_tau(inf.post_mean, inf.post_vsm_gp, tau, bin_size_ms,
-                   eps=cfg.eps_noise, maxiter=cfg.tau_maxiter)
-    return cd, tr
+    return cd, _learn_tau_from_inf(inf, tau, bin_size_ms, cfg)
 
 
 def _online_mstep(n: int, C, d, tau, Yb, inf: InfRes, bin_size_ms, cfg: FitConfig, P, cumH):
@@ -183,8 +209,7 @@ def _online_mstep(n: int, C, d, tau, Yb, inf: InfRes, bin_size_ms, cfg: FitConfi
         details = (cd.grad_norm, cd.niter, tr.niter)
         return newC, newd, newtau, P, cumH, cd.cost, tr.cost, tr.tau, details
 
-    tr = learn_tau(inf.post_mean, inf.post_vsm_gp, tau, bin_size_ms, prior=(tau, stepsize),
-                   eps=cfg.eps_noise, maxiter=cfg.tau_maxiter)
+    tr = _learn_tau_from_inf(inf, tau, bin_size_ms, cfg, prior=(tau, stepsize))
     means, vsms = inf.post_mean, inf.post_vsm
     one = torch.ones((), dtype=torch.int32, device=C.device)
     if cfg.update_cd_jointly:

@@ -265,6 +265,40 @@ def inv_logdet_psd_mixed(H: torch.Tensor, ns_steps: int = 3, f64_steps: int = 1)
     return inv_s * (s[..., :, None] * s[..., None, :]), ld
 
 
+class _InvLogdetPsdMixed(torch.autograd.Function):
+    """:func:`inv_logdet_psd_mixed` with the exact derivative rules of the
+    exact quantities, ``d(H^{-1}) = -H^{-1} dH H^{-1}`` and
+    ``d logdet H = <H^{-1}, dH>``, applied from the saved inverse ``X``
+    (symmetric): ``grad_H = -X gX X + g_ld X``. Autograd never enters the f32
+    factor or the Newton-Schulz steps."""
+
+    @staticmethod
+    def forward(ctx, H):
+        X, ld = inv_logdet_psd_mixed(H)
+        ctx.save_for_backward(X)
+        ctx.set_materialize_grads(False)
+        return X, ld
+
+    @staticmethod
+    def backward(ctx, gX, g_ld):
+        (X,) = ctx.saved_tensors
+        grad = None
+        if gX is not None:
+            grad = -(X @ gX @ X)
+        if g_ld is not None:
+            term = g_ld[..., None, None] * X
+            grad = term if grad is None else grad + term
+        return grad
+
+
+def inv_logdet_psd_mixed_d(H: torch.Tensor):
+    """``(H^{-1}, logdet H)`` of SPD matrices ``(..., D, D)`` as
+    :func:`inv_logdet_psd_mixed`, differentiable by the exact rules (either
+    output's cotangent may be absent). This makes the block-tridiagonal
+    factorization of :mod:`pgpfa_torch.ops.blocktridiag` differentiable."""
+    return _InvLogdetPsdMixed.apply(H)
+
+
 def blocks_inv(K: torch.Tensor) -> torch.Tensor:
     """Per-block SPD inverse of a ``(..., T, T)`` stack with an extra f64
     Newton-Schulz step (it defines the prior term of the Laplace objective)."""

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the device time of the port's fit goes, on one NVIDIA GPU.
 
-    python3 pgpfa_torch/tools/profile_fit.py [laplace|variational|online|mcmc|mcmc1] [f64|f32]
+    python3 pgpfa_torch/tools/profile_fit.py [laplace|variational|online|mcmc|mcmc1|longt] [f64|f32]
 
 1. fit, under ``torch.profiler``, on the Stevenson-shaped surrogate (100
    trials x 90 neurons x 140 bins, xdim 5, Poisson-PCA init with seed 0),
@@ -13,7 +13,10 @@
    ``'diag'`` fit at batch 10 (minibatches drawn with seed 0) after a
    one-iteration warm-up fit. ``mcmc``: 20 samples of the 100 batched
    adaptive ESS chains; ``mcmc1``: 100 samples of one speculative chain on
-   bench.py's synthetic data; each after a warm-up call. Prints the wall time (profiler on),
+   bench.py's synthetic data; each after a warm-up call. ``longt`` (f64
+   only): one warm banded Laplace EM iteration (E-step warm-started from a
+   cold E-step's modes, (C, d) and tau M-steps) of the long-trial workload
+   at T = 1000 (``pgpfa_torch.data.longt``, blocks of 50 bins). Prints the wall time (profiler on),
    the summed device time of every kernel and copy, so the device's busy
    and idle share of the wall, the device time by the ATen op that
    launched it (the hand-written kernels, which no ATen op launches, by
@@ -50,7 +53,9 @@ from pgpfa_torch import (  # noqa: E402
     posterior_mcmc_from_arrays,
     stevenson_surrogate,
 )
+from pgpfa_torch.em.fit import _estep, _learn_tau_from_inf  # noqa: E402
 from pgpfa_torch.infer import variational as V  # noqa: E402
+from pgpfa_torch.infer.laplace_longt import laplace_estep_banded  # noqa: E402
 from pgpfa_torch.learn.mstep_gp import learn_tau  # noqa: E402
 from pgpfa_torch.learn.mstep_obs import learn_cd  # noqa: E402
 from pgpfa_torch.models.params import rbf_kernel  # noqa: E402
@@ -133,6 +138,25 @@ def mcmc1_run(ds, init, dtype):
     return run, "100 samples of one speculative ESS chain (n_spec 8), synthetic"
 
 
+def longt_run(ds, init, dtype):
+    """A cold banded E-step; returns one warm banded Laplace EM iteration of
+    the long-trial workload at T = 1000 from its modes (``ds`` and ``init``,
+    the surrogate's, are not used)."""
+    from pgpfa_torch.data.longt import BIN_MS, BLOCK, long_trial_problem
+
+    T = 1000
+    C, d, tau, Y = (torch.as_tensor(a, dtype=dtype, device="cuda") for a in long_trial_problem(T))
+    cfg = FitConfig(time_block=BLOCK)
+    x0 = laplace_estep_banded(C, d, tau, Y, T, BIN_MS, BLOCK)[0].post_mean
+
+    def run():
+        inf, _, _, _ = _estep(C, d, tau, Y, T, BIN_MS, x0, cfg)
+        learn_cd(Y, inf.post_mean, inf.post_vsm, C, d, maxiter=cfg.cd_newton_iters)
+        _learn_tau_from_inf(inf, tau, BIN_MS, cfg)
+    run()
+    return run, "1 warm banded Laplace EM iteration, T = 1000, blocks of 50"
+
+
 def np_dtype(dtype):
     return np.float32 if dtype == torch.float32 else np.float64
 
@@ -141,7 +165,7 @@ def profile_fit(method, dtype):
     ds = stevenson_surrogate(xdim=5, seed=2011)
     init = initialize_params(5, ds.ydim, ds, seed=0)
     runs = {"laplace": laplace_run, "variational": variational_run, "online": online_run,
-            "mcmc": mcmc_run, "mcmc1": mcmc1_run}
+            "mcmc": mcmc_run, "mcmc1": mcmc1_run, "longt": longt_run}
     run, label = runs[method](ds, init, dtype)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -215,9 +239,9 @@ def profile_ns_step():
 def main():
     method = sys.argv[1] if len(sys.argv) > 1 else "laplace"
     precision = sys.argv[2] if len(sys.argv) > 2 else "f64"
-    if method not in ("laplace", "variational", "online", "mcmc", "mcmc1"):
+    if method not in ("laplace", "variational", "online", "mcmc", "mcmc1", "longt"):
         raise SystemExit(f"profile_fit: unknown method {method!r}; choose laplace, variational, "
-                         "online, mcmc or mcmc1")
+                         "online, mcmc, mcmc1 or longt")
     dtypes = {"f64": torch.float64, "f32": torch.float32}
     if precision not in dtypes:
         raise SystemExit(f"profile_fit: unknown precision {precision!r}; choose f64 or f32")

@@ -63,3 +63,19 @@ def small_problem(seed: int = 3, xdim: int = 2, ydim: int = 15, R: int = 4,
     ds = dataset(xdim=xdim, ydim=ydim, numTrials=R, trialDur=trial_dur, binSize=bin_ms,
                  seed=seed)
     return ds, initialize_params(xdim, ydim, ds, seed=0)
+
+
+def longt_problem():
+    """tests/test_longt.py's long-trial problem (xdim 2, ydim 12, T 64, R 4,
+    20 ms bins, blocks of 16: 320 ms >> 6 x 40 ms), an init and per-neuron
+    weights, for the banded-path tests."""
+    rng = np.random.default_rng(11)
+    xdim, ydim, T, R, bin_ms = 2, 12, 64, 4, 20.0
+    tau = np.array([0.03, 0.04])
+    C = rng.uniform(-0.5, 0.5, (ydim, xdim))
+    d = rng.uniform(-1.0, 0.0, ydim)
+    X = rng.standard_normal((R, xdim, T)) * 0.7
+    Y = rng.poisson(np.exp(np.einsum("nk,rkt->rnt", C, X) + d[None, :, None])).astype(float)
+    init = {"C": C + 0.1, "d": d, "tau": np.array([0.035, 0.035])}
+    w = np.random.default_rng(4).uniform(0.2, 1.0, ydim)
+    return dict(C=C, d=d, tau=tau, Y=Y, T=T, bin_ms=bin_ms, s=16, init=init, w=w)
