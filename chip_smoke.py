@@ -16,7 +16,8 @@ Phases (any failure raises and the exit code is not 0):
    the bound computed from the shape (``bound_ms``); ``ns_step`` also timed
    on inputs one float off 16-byte alignment (``offset_ms``, its 4-byte
    copy path), and checked at the widest width ``chol32`` factors,
-   (2, 1792, 1792), correctness only.
+   (2, 1792, 1792), correctness only; and at (65537, 8, 8), past the grid's
+   z extent, where it must launch twice.
 4. hessian: the backward error ``||L L^T - A||_F / ||A||_F`` of ``chol32``
    on the slice's first Newton Hessians (100, 700, 700), at most twice
    cuSOLVER's on the same matrices, matrix by matrix.
@@ -103,7 +104,21 @@ Phases (any failure raises and the exit code is not 0):
     warm). (d) Online ``'diag'`` banded, batch 4, 2 iterations card
     against CPU, iteration 2 also against the CPU's E-step at the card's
     parameters. (e) One warm banded Laplace iteration at T = 1000 timed by
-    phase.
+    phase. (f) One f32 banded Laplace iteration at T = 1000 (after (b)),
+    timed: iteration 1's nPLL against the CPU's f32 E-step and against
+    (b)'s f64 fit, tau against (b)'s; ``chol32`` launched at (16, 100, 100),
+    ``ns_step`` never.
+14. sharded: trial-parallel EM over ``torch.distributed``. (a) World 1 over
+    NCCL in this process: ``fit_sharded`` on the slice's surrogate, f64
+    Laplace, 3 iterations after a warm-up, against the slice's fit. (b) Two
+    ranks on the one card over gloo (NCCL refuses two ranks on one card),
+    spawned: ``fit_multihost`` with 50 trials each, 3 iterations after a
+    warm-up, against the slice's fit; ``chol32`` at (50, 700, 700) and
+    ``ns_step`` at (5, 140, 140) on each rank. (c) The same ranks: one banded
+    f64 iteration at T = 1000 of 8 long trials each, against the longt
+    phase's iteration 1. (d) ``sharded_estep_stats``' PautoSum from the two
+    ranks against one process's. One ``sharded row: {json}`` line with the
+    s/EM-iteration of world 1, world 2 and the slice.
 
 The last three lines of standard output are one JSON object with the
 kernels' numbers, the ``nvidia-smi`` name and power limit, and
@@ -250,6 +265,29 @@ LONGT_DENSE_PLL_REL, LONGT_DENSE_MEAN, LONGT_DENSE_VSM = 1e-7, 5e-6, 1e-7
 LONGT_BLOCK_PLL_REL = 1e-9
 LONGT_GRAD = 1e-6
 LONGT_VI_REL = 1e-8
+# The f32 banded path (longt (f)): iteration 1's nPLL card against the CPU's
+# f32 E-step to 1e-4 relative (two f32 factorizations of every block; 2.7e-7
+# measured between f32 and f64 at the true parameters on
+# tests/test_torch_longt_f32.py's problem), and against the f64 fit of (b)
+# within tests/test_torch_f32.py's envelopes, nPLL 6e-2 and tau 5e-3 s.
+LONGT_F32_DEV_REL = 1e-4
+LONGT_F32_PLL_ENV, LONGT_F32_TAU_ENV = 6e-2, 5e-3
+# The sharded phase. World 1 over NCCL runs the slice's fit with sums over
+# one rank: 1e-12 relative (a mean taken as sum / count, 1.9e-16 measured;
+# parameters equal). World 2's E-steps equal the slice's bit for bit (an
+# E-step of 50 trials gives their 100-trial modes and covariances exactly,
+# (d)), but its M-step sums run in another order, and the M-steps' accept
+# tests then tie differently near the optimum, as the card's and the CPU's
+# do (phase 9). On an NVIDIA H100 80GB HBM3 that missed
+# tests/test_parallel.py's tolerances over 3 iterations (nPLL 1.8e-8
+# relative, C 3.6e-7, tau 2.4e-6 s), so world 2 is held as the card against
+# the CPU: iteration 1's nPLL to 1e-9 relative, the parameters after every
+# iteration to ONLINE_DEV_PARAM_TOL, the later nPLLs to the slice's chaos
+# envelope PLL_TOL_ITER2 * CHAOS^(n-2); the banded iteration likewise.
+# PautoSum from two ranks against one process: 1e-10 relative.
+SHARDED_W1_REL = 1e-12
+SHARDED_PLL1_REL = 1e-9
+SHARDED_PAUTO_REL = 1e-10
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -341,7 +379,13 @@ def phase_build():
 
 
 def phase_kernels():
-    from pgpfa_torch.ops.cuda_kernels import chol32, chol32_plain, ns_step, ns_step_plain
+    from pgpfa_torch.ops.cuda_kernels import (
+        MAX_GRID_Z,
+        chol32,
+        chol32_plain,
+        ns_step,
+        ns_step_plain,
+    )
 
     rows = {}
 
@@ -352,10 +396,11 @@ def phase_kernels():
     # (10, 700, 700), the online C-only 'grad' system (1, 450, 450), the
     # MCMC prior factor of bench.py's synthetic rows (2, 50, 50) and the
     # leave-one-out scoring of the CV sweep's 2 test trials (180, 700, 700),
-    # and the banded long-trial path's posterior blocks (16, 100, 100) and
-    # tau lanes (4, 50, 50).
+    # the banded long-trial path's posterior blocks (16, 100, 100) and tau
+    # lanes (4, 50, 50), and the Hessians of one of the sharded phase's two
+    # ranks (50, 700, 700).
     for B, D in [(100, 700), (5, 140), (10, 140), (90, 6), (4, 260), (10, 700), (1, 450),
-                 (2, 50), (180, 700), (16, 100), (4, 50)]:
+                 (2, 50), (180, 700), (16, 100), (4, 50), (50, 700)]:
         A = spd(B, D, 0.5, seed=B * 1000 + D)
         L, Lp = chol32(A), chol32_plain(A)
         torch.cuda.synchronize()
@@ -409,6 +454,26 @@ def phase_kernels():
         rows[("ns_step", B, D)]["offset_ms"] = off_ms
         log(f"ns_step ({B}, {D}, {D}) on inputs one float off 16-byte alignment: same "
             f"result; {off_ms:.4f} ms (aligned {rows[('ns_step', B, D)]['ms']:.4f} ms)")
+
+    # ns_step past the grid's z extent of 65535: one launch per slice
+    B, D = MAX_GRID_Z + 2, 8
+    H = spd(B, D, 1.0, seed=D + 2)
+    X = (0.9 * torch.cholesky_inverse(torch.linalg.cholesky(H.double()))).float().contiguous()
+    reset_counts()
+    out = ns_step(H, X)
+    n_launch, by = ns_step.launches, dict(ns_step.launches_by_shape)
+    want = ns_step_plain(H, X)
+    torch.cuda.synchronize()
+    err = float((out - want).abs().max())
+    log(f"ns_step ({B}, {D}, {D}): {n_launch} launches {by}; max|kernel - plain| = {err:.3e} "
+        f"(<= {KERNEL_TOL} x max|X'|)")
+    if not (n_launch == 2 and by == {(MAX_GRID_Z, D): 1, (2, D): 1}
+            and err <= KERNEL_TOL * float(want.abs().max())):
+        raise RuntimeError(f"ns_step at batch {B} must launch twice and match its plain version")
+    timed(rows, "ns_step", B, D, err, lambda: ns_step(H, X), lambda: ns_step_plain(H, X),
+          lambda: torch.baddbmm(X, X, torch.bmm(H, X), beta=2.0, alpha=-1.0),
+          ns_step_bound(B, D))
+    rows[("ns_step", B, D)]["launches_per_call"] = n_launch
     return rows
 
 
@@ -1484,10 +1549,36 @@ def phase_longt():
             raise RuntimeError(f"longt T={Tn}: nPLL not finite, tau not positive, or a kernel "
                                f"not launched at ({TRIALS}, {m}, {m})")
     init = {"C": C, "d": d, "tau": tau}
+
+    # (f) one f32 banded Laplace iteration at T = 1000: card against the
+    # CPU's f32 E-step and against (b)'s f64 fit; ns_step must not launch
+    reset_counts()
+    res32, sec["f32"] = timed_call(lambda: fit(init, Y, BIN_MS, FitConfig(
+        max_em_iter=1, time_block=BLOCK), device="cuda", dtype=torch.float32))
+    launches_f32 = read_counts()
+    n16 = chol32.launches_by_shape[(TRIALS, m)]
+    t0 = time.time()
+    _, pll_h32 = laplace_estep_banded(*(t.float() for t in host), T, BIN_MS, BLOCK)
+    t_cpu = time.time() - t0
+    p32, p64 = float(res32.post_loglik[0]), float(fits[1000].post_loglik[0])
+    rel = abs(p32 - float(pll_h32)) / abs(float(pll_h32))
+    d_tau = float((res32.tau_seq[0].double() - fits[1000].tau_seq[0]).abs().max())
+    log(f"longt f32 banded Laplace EM T={T}: {sec['f32']:.4f} s for 1 iteration; nPLL card "
+        f"{p32:.6f} CPU {float(pll_h32):.6f}, relative {rel:.3e} (tolerance "
+        f"{LONGT_F32_DEV_REL:.0e}); f64 fit {p64:.6f}, |f32 - f64| {abs(p32 - p64):.3e} "
+        f"(envelope {LONGT_F32_PLL_ENV:.0e}), tau {d_tau:.3e} s ({LONGT_F32_TAU_ENV:.0e}); "
+        f"launches {launches_f32}, chol32 at ({TRIALS}, {m}, {m}) {n16}; CPU E-step "
+        f"{t_cpu:.2f} s")
+    if not (res32.post_loglik.dtype == torch.float32 and rel <= LONGT_F32_DEV_REL
+            and abs(p32 - p64) <= LONGT_F32_PLL_ENV and d_tau <= LONGT_F32_TAU_ENV
+            and n16 > 0 and launches_f32["ns_step"] == 0):
+        raise RuntimeError("longt: the f32 banded iteration disagrees with the CPU or the f64 "
+                           "fit, or its kernels' launches are wrong")
+
     fit(init, Y, BIN_MS, FitConfig(max_em_iter=1), device="cuda")  # warm-up
     dres, wall = timed_call(lambda: fit(init, Y, BIN_MS, FitConfig(max_em_iter=3), device="cuda"))
     sec["dense"] = wall / 3
-    log(f"longt row: {json.dumps({'metric': 'long-trial banded EM iteration (T=1000, s=50, 30n x 16tr)', 'value': sec[1000], 'unit': 's/EM-iteration', 'T4000': sec[4000], 'time_ratio_T4000_vs_T1000': sec[4000] / sec[1000], 'dense_same_T': sec['dense'], 'vs_dense_same_T': sec['dense'] / sec[1000]})}")
+    log(f"longt row: {json.dumps({'metric': 'long-trial banded EM iteration (T=1000, s=50, 30n x 16tr)', 'value': sec[1000], 'unit': 's/EM-iteration', 'T4000': sec[4000], 'time_ratio_T4000_vs_T1000': sec[4000] / sec[1000], 'dense_same_T': sec['dense'], 'vs_dense_same_T': sec['dense'] / sec[1000], 'sec_per_iter_f32': sec['f32']})}")
     log(f"longt dense EM T=1000: nPLL {dres.post_loglik.tolist()} (banded "
         f"{fits[1000].post_loglik.tolist()})")
 
@@ -1569,6 +1660,198 @@ def phase_longt():
         f"{t_e + t_cd + t_tau:.4f} s): E-step {t_e:.4f} s, (C, d) M-step {t_cd:.4f} s, "
         f"tau M-step {t_tau:.4f} s ({tr.niter.tolist()} secant steps accepted)")
     log(f"longt phase: {time.time() - t_phase:.1f} s")
+    return total, launches_f32, fits[1000]
+
+
+def _sharded_rank(rank, world, store, out_dir, stev, longt):
+    """One rank of the sharded phase's world 2 (spawned; gloo over the one
+    card). (b) f64 Laplace EM of its 50 Stevenson trials through
+    ``fit_multihost``, after a one-iteration warm-up; (c) one banded f64
+    iteration of its 8 long trials; (d) ``sharded_estep_stats`` at the init.
+    Writes its results to ``out_dir``; any failure raises in the parent."""
+    import torch.distributed as dist
+
+    from pgpfa_torch import FitConfig
+    from pgpfa_torch.convert import params_from_numpy
+    from pgpfa_torch.data.longt import BIN_MS, BLOCK
+    from pgpfa_torch.ops.cuda_kernels import chol32, ns_step
+    from pgpfa_torch.parallel import fit_multihost, sharded_estep_stats
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        init, Y, bin_ms = stev
+        per = len(Y) // world
+        Yl = Y[rank * per:(rank + 1) * per]
+        out = {}
+        fit_multihost(init, Yl, bin_ms, FitConfig(max_em_iter=1), device="cuda")  # warm-up
+        reset_counts()
+        dist.barrier()
+        t0 = time.time()
+        res = fit_multihost(init, Yl, bin_ms, FitConfig(max_em_iter=3), device="cuda")
+        torch.cuda.synchronize()
+        out["sec"] = (time.time() - t0) / 3
+        out["launches"] = read_counts()
+        out["shapes"] = {k.__name__: dict(k.launches_by_shape) for k in (chol32, ns_step)}
+        out["fit"] = {k: getattr(res, k).cpu() for k in ("post_loglik", "C_seq", "d_seq", "tau_seq")}
+
+        C, d, tau, YL = longt
+        per = len(YL) // world
+        reset_counts()
+        dist.barrier()
+        t0 = time.time()
+        band = fit_multihost({"C": C, "d": d, "tau": tau}, YL[rank * per:(rank + 1) * per],
+                             BIN_MS, FitConfig(max_em_iter=1, time_block=BLOCK), device="cuda")
+        torch.cuda.synchronize()
+        out["band_sec"] = time.time() - t0
+        out["band_launches"] = read_counts()
+        out["band"] = {k: getattr(band, k).cpu() for k in ("post_loglik", "C_seq", "d_seq", "tau_seq")}
+
+        p = params_from_numpy(init, "cuda")
+        stats = sharded_estep_stats(p.C, p.d, p.tau, torch.as_tensor(Yl, device="cuda"),
+                                    Y.shape[-1], bin_ms)
+        out["pauto"], out["obj_sum"], out["n"] = (t.cpu() for t in stats[3:])
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(slice64, longt64):
+    """Trial-parallel EM over ``torch.distributed`` (see the module
+    docstring, phase 14). Returns the launches of its fits, summed over the
+    world-1 fit and both ranks of world 2."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from pgpfa_torch import FitConfig, initialize_params, stevenson_surrogate
+    from pgpfa_torch.data.longt import long_trial_problem
+    from pgpfa_torch.infer.laplace import laplace_estep_from_arrays
+    from pgpfa_torch.learn.mstep_gp import pauto_sum
+    from pgpfa_torch.convert import params_from_numpy
+    from pgpfa_torch.ops.cuda_kernels import chol32, ns_step
+    from pgpfa_torch.parallel import fit_sharded
+
+    t_phase = time.time()
+    res_slice, sec_slice = slice64
+    ds = stevenson_surrogate(xdim=5, seed=2011)
+    init = initialize_params(5, ds.ydim, ds, seed=0)
+    bin_ms = float(ds.binSize)
+    cfg = FitConfig(max_em_iter=3)
+
+    def diffs(got, want):
+        """nPLL (relative), C and tau differences of two fits (dicts)."""
+        g, w = ({k: r[k].cpu() for k in ("post_loglik", "C", "tau")} for r in (got, want))
+        return (float(((g["post_loglik"] - w["post_loglik"]).abs() / w["post_loglik"].abs()).max()),
+                float((g["C"] - w["C"]).abs().max()), float((g["tau"] - w["tau"]).abs().max()))
+
+    slice_fit = res_slice._asdict()
+
+    # (a) world 1 over NCCL, in this process
+    total = {"chol32": 0, "ns_step": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+        try:
+            fit_sharded(init, ds.Y, bin_ms, FitConfig(max_em_iter=1))  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.time()
+            w1 = fit_sharded(init, ds.Y, bin_ms, cfg)
+            torch.cuda.synchronize()
+            sec_w1 = (time.time() - t0) / 3
+            counts = read_counts()
+            shapes = {k.__name__: dict(k.launches_by_shape) for k in (chol32, ns_step)}
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    rel, dC, dtau = diffs(w1._asdict(), slice_fit)
+    log(f"sharded (a) world 1 over {backend}: fit_sharded, {sec_w1:.4f} s/EM-iteration "
+        f"(slice {sec_slice:.4f}); against the slice's fit: nPLL relative {rel:.3e} (tolerance "
+        f"{SHARDED_W1_REL:.0e}), C {dC:.3e}, tau {dtau:.3e}; launches {counts}")
+    if not (w1.C.is_cuda and max(rel, dC, dtau) <= SHARDED_W1_REL and counts["chol32"] > 0
+            and shapes["chol32"].get((100, 700), 0) > 0 and shapes["ns_step"].get((5, 140), 0) > 0):
+        raise RuntimeError("sharded: the world-1 fit disagrees with the slice's, or a kernel "
+                           "did not launch at the path's shapes")
+    for k in total:
+        total[k] += counts[k]
+
+    # (b)-(d) world 2 over gloo: two spawned ranks on the one card
+    longt = long_trial_problem(1000)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        mp.start_processes(_sharded_rank, nprocs=2, start_method="spawn",
+                           args=(2, f"{tmp}/store", tmp, (init, ds.Y, bin_ms), longt))
+        t_spawn = time.time() - t0
+        outs = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    for r, o in enumerate(outs):
+        log(f"sharded rank {r}: Laplace {o['sec']:.4f} s/EM-iteration, launches {o['launches']}, "
+            f"by (B, D) {o['shapes']}; banded T=1000 1 iteration {o['band_sec']:.3f} s, "
+            f"launches {o['band_launches']}")
+        if not (o["shapes"]["chol32"].get((50, 700), 0) > 0
+                and o["shapes"]["ns_step"].get((5, 140), 0) > 0
+                and o["band_launches"]["chol32"] > 0 and o["band_launches"]["ns_step"] > 0):
+            raise RuntimeError(f"sharded: rank {r} did not launch chol32 at (50, 700, 700), "
+                               f"ns_step at (5, 140, 140), or the banded path's kernels")
+        for k in total:
+            total[k] += o["launches"][k] + o["band_launches"][k]
+    failed = []
+
+    def held(label, got, want):
+        """Log how far a fit (dict of per-iteration histories) lies from
+        another and note a failure: iteration 1's nPLL relative, the
+        parameters after each iteration, the later nPLLs against the
+        chaos envelope."""
+        pg, pw = got["post_loglik"].double(), want["post_loglik"].cpu().double()
+        rel1 = abs(float(pg[0] - pw[0])) / abs(float(pw[0]))
+        later = [abs(float(pg[n] - pw[n])) for n in range(1, len(pg))]
+        dpar = [max(float((got[k][n].cpu() - want[k][n].cpu()).abs().max())
+                    for k in ("C_seq", "d_seq", "tau_seq")) for n in range(len(pg))]
+        env = [PLL_TOL_ITER2 * CHAOS ** (n - 1) for n in range(1, len(pg))]
+        log(f"sharded {label}: iteration 1 nPLL relative {rel1:.3e} ({SHARDED_PLL1_REL:.0e}); "
+            f"later |nPLL| {[f'{v:.3e}' for v in later]} (envelope {env}); parameters after each "
+            f"iteration {[f'{v:.3e}' for v in dpar]} ({ONLINE_DEV_PARAM_TOL:.0e})")
+        if not (rel1 <= SHARDED_PLL1_REL and all(v <= e for v, e in zip(later, env))
+                and max(dpar) <= ONLINE_DEV_PARAM_TOL):
+            failed.append(label)
+
+    same = all(torch.equal(outs[0][key][k], outs[1][key][k])
+               for key in ("fit", "band") for k in outs[0][key])
+    log(f"sharded (b) world 2 over gloo, 50 trials per rank: the ranks' results bit-equal: "
+        f"{same}; spawn and run {t_spawn:.1f} s")
+    if not same:
+        failed.append("the ranks' results differ")
+    held("(b) world 2 against the slice's fit", outs[0]["fit"], slice_fit)
+    held("(c) banded T=1000, 8 trials per rank, against the longt phase's iteration 1",
+         outs[0]["band"], {k: getattr(longt64, k)[:1] for k in outs[0]["band"]})
+
+    # (d) PautoSum of the two ranks against one process on the card; and
+    # whether an E-step of trials 0-49 gives the same modes and covariances
+    # at batch 50 as at batch 100
+    p = params_from_numpy(init, "cuda")
+    Yc = torch.as_tensor(ds.Y, device="cuda")
+    inf, _ = laplace_estep_from_arrays(p.C, p.d, p.tau, Yc, ds.T, bin_ms, compute_cov=False)
+    want = pauto_sum(inf.post_mean, inf.post_vsm_gp).cpu()
+    rel_p = float((outs[0]["pauto"] - want).abs().max() / want.abs().max())
+    obj_rel = abs(float(outs[0]["obj_sum"]) - float(inf.trial_obj.sum())) / abs(
+        float(inf.trial_obj.sum()))
+    half, _ = laplace_estep_from_arrays(p.C, p.d, p.tau, Yc[:50], ds.T, bin_ms, compute_cov=False)
+    d_mean = float((half.post_mean - inf.post_mean[:50]).abs().max())
+    d_vsm = float((half.post_vsm - inf.post_vsm[:50]).abs().max() / inf.post_vsm.abs().max())
+    log(f"sharded (d) sharded_estep_stats: PautoSum relative {rel_p:.3e} (tolerance "
+        f"{SHARDED_PAUTO_REL:.0e}), objective sum {obj_rel:.3e}, n {float(outs[0]['n'])}; "
+        f"trials 0-49 at batch 50 against batch 100: modes {d_mean:.3e}, post_vsm relative "
+        f"{d_vsm:.3e}")
+    if not (rel_p <= SHARDED_PAUTO_REL and obj_rel <= SHARDED_PAUTO_REL
+            and float(outs[0]["n"]) == ds.numTrials):
+        failed.append("(d) the reduced PautoSum")
+    if failed:
+        raise RuntimeError(f"sharded: {failed}")
+    row = {"metric": "sharded f64 Laplace EM iteration (Stevenson surrogate, 100 trials)",
+           "unit": "s/EM-iteration", "world1_nccl": sec_w1,
+           "world2_gloo_one_card": max(o["sec"] for o in outs), "slice": sec_slice,
+           "banded_T1000_world2": max(o["band_sec"] for o in outs)}
+    log(f"sharded row: {json.dumps(row)}")
+    log(f"sharded phase: {time.time() - t_phase:.1f} s")
     return total
 
 
@@ -1585,7 +1868,8 @@ def main():
     launches_mcmc = phase_mcmc()
     launches_checkpoint = phase_checkpoint()
     launches_diag = phase_diag(rows)
-    launches_longt = phase_longt()
+    launches_longt, launches_longt_f32, longt64 = phase_longt()
+    launches_sharded = phase_sharded(slice64, longt64)
 
     kernels = []
     for name, src, replaces, (B, D) in [
@@ -1600,6 +1884,8 @@ def main():
                         "launches_checkpoint": launches_checkpoint[name],
                         "launches_diag": launches_diag[name],
                         "launches_longt": launches_longt[name],
+                        "launches_longt_f32": launches_longt_f32[name],
+                        "launches_sharded": launches_sharded[name],
                         **rows[(name, B, D)],
                         "shapes": [r for (n, _, _), r in rows.items() if n == name]})
     print(json.dumps({"kernels": kernels}))

@@ -5,7 +5,8 @@ online EM (all six online update rules, ``FitConfig(em_mode="online")``)
 with the Laplace or the dual variational E-step (dual-Newton or L-BFGS
 solver), dense or, for long trials, on banded block-tridiagonal algebra
 (``FitConfig(time_block=...)``), with checkpoint and resume
-(``fit_loop``); the reference-compatible
+(``fit_loop``), on one process or with the trials split over processes
+(``fit_sharded``, :mod:`pgpfa_torch.parallel`); the reference-compatible
 class driver ``PPGPFAfit`` with its fit diagnostics, leave-one-neuron-out
 prediction (``leave_one_out_prediction``) and the cross-validated
 latent-dimension sweep (``crossValidation``); and elliptical-slice MCMC of
@@ -67,12 +68,22 @@ from pgpfa_torch.infer.mcmc import (  # noqa: E402
     posterior_mcmc_batched,
     posterior_mcmc_from_arrays,
 )
-from pgpfa_torch.models.params import Params, pack_cd, unpack_cd  # noqa: E402
+from pgpfa_torch.infer.variational import vi_estep, vi_estep_from_arrays  # noqa: E402
+from pgpfa_torch.models.params import Params, pack_cd, rbf_kernel, unpack_cd  # noqa: E402
+from pgpfa_torch.parallel.sharded import fit_sharded  # noqa: E402
+from pgpfa_torch.utils.io import (  # noqa: E402
+    load_checkpoint,
+    open_variables,
+    save_checkpoint,
+    save_variables,
+)
 
 # reference-API aliases (the reference's funs/util.py names)
 initializeParams = initialize_params
 subsampleTrials = subsample_trials
 seenTrials = seen_trials
+saveVariables = save_variables
+openVariables = open_variables
 leaveOneOutPrediction = leave_one_out_prediction
 subspaceAngle = subspace_angle
 JSLogdetDiv = js_logdet_div
@@ -91,15 +102,19 @@ __all__ = [
     "Params",
     "pack_cd",
     "unpack_cd",
+    "rbf_kernel",
     "FitConfig",
     "FitResult",
     "ONLINE_UPDATE_METHODS",
     "draw_batch_indices",
     "fit",
     "fit_loop",
+    "fit_sharded",
     "PPGPFAfit",
     "laplace_estep",
     "laplace_estep_from_arrays",
+    "vi_estep",
+    "vi_estep_from_arrays",
     "leave_one_out_prediction",
     "leaveOneOutPrediction",
     "crossValidation",
@@ -121,4 +136,8 @@ __all__ = [
     "posterior_mcmc_from_arrays",
     "params_from_numpy",
     "params_to_numpy",
+    "save_variables",
+    "open_variables",
+    "save_checkpoint",
+    "load_checkpoint",
 ]

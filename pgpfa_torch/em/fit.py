@@ -52,6 +52,7 @@ from pgpfa_torch.models.params import Params, pack_cd
 from pgpfa_torch.ops.blockmat import solve_psd_mixed
 from pgpfa_torch.utils.io import load_checkpoint, save_checkpoint
 from pgpfa_torch.utils.optim import minimize_lbfgs
+from pgpfa_torch.utils.reduce import Reduce
 
 BATCH = "batch"
 ONLINE = "online"
@@ -82,7 +83,8 @@ class FitConfig:
     long-trial E-steps and tau M-step: it must divide T and satisfy
     ``time_block * bin >~ 6 max(tau)``. The banded Laplace E-step runs
     ``banded_newton_iters`` Newton bodies; the banded variational E-step
-    always uses L-BFGS. The banded path runs in f64 only.
+    always uses L-BFGS. In f32 the banded path's block inverses are the
+    symmetrized f32 inverses, with no Newton-Schulz step.
     """
 
     inference_method: str = "laplace"
@@ -140,50 +142,56 @@ class FitResult(NamedTuple):
     iter_sec: Optional[torch.Tensor] = None
 
 
-def _estep(C, d, tau, Y, T, bin_size_ms, warm, cfg: FitConfig):
+def _estep(C, d, tau, Y, T, bin_size_ms, warm, cfg: FitConfig, reduce: Reduce = None):
     """E-step of either method, dense or banded (``cfg.time_block``);
     returns ``(inf, post_loglik, vlb, warm_new)``. ``warm is None`` marks
     the cold first E-step, which for variational inference takes the cold
-    budget ``vi_maxiter``."""
+    budget ``vi_maxiter``. ``reduce`` (sums over ranks) makes the nPLL and
+    the bound means over the trials of all ranks."""
     vi_maxiter = cfg.vi_maxiter if warm is None else cfg.vi_maxiter_warm
     if cfg.inference_method == "laplace":
         if cfg.time_block is not None:
             inf, pll = laplace_estep_banded(
                 C, d, tau, Y, T, bin_size_ms, cfg.time_block,
-                x_init=warm, maxiter=cfg.banded_newton_iters, eps_noise=cfg.eps_noise)
+                x_init=warm, maxiter=cfg.banded_newton_iters, eps_noise=cfg.eps_noise,
+                reduce=reduce)
             return inf, pll, torch.zeros_like(pll), inf.post_mean
         inf, pll = laplace_estep_from_arrays(
             C, d, tau, Y, T, bin_size_ms,
             x_init=warm, gtol=cfg.newton_gtol, maxiter=cfg.newton_maxiter,
-            compute_cov=False, eps_noise=cfg.eps_noise,
+            compute_cov=False, eps_noise=cfg.eps_noise, reduce=reduce,
         )
         return inf, pll, torch.zeros_like(pll), inf.post_mean
     if cfg.time_block is not None:
         return vi_estep_banded(
             C, d, tau, Y, T, bin_size_ms, cfg.time_block,
-            rho_init=warm, maxiter=vi_maxiter, eps_noise=cfg.eps_noise)
+            rho_init=warm, maxiter=vi_maxiter, eps_noise=cfg.eps_noise, reduce=reduce)
     return vi_estep_from_arrays(
         C, d, tau, Y, T, bin_size_ms,
         rho_init=warm, gtol=cfg.vi_gtol, maxiter=vi_maxiter,
-        compute_cov=False, eps_noise=cfg.eps_noise, solver=cfg.vi_solver,
+        compute_cov=False, eps_noise=cfg.eps_noise, solver=cfg.vi_solver, reduce=reduce,
     )
 
 
-def _learn_tau_from_inf(inf, tau, bin_size_ms, cfg: FitConfig, prior=None):
+def _learn_tau_from_inf(inf, tau, bin_size_ms, cfg: FitConfig, prior=None,
+                        reduce: Reduce = None):
     """Tau M-step from dense or banded posterior moments. The banded one
     never forms the dense ``(xdim, T, T)`` PautoSum; its secant optimizer
     gets at least 12 iterations."""
     if isinstance(inf, BandedInfRes):
         return learn_tau_banded(inf.post_mean, inf.vsm_gp_diag, inf.vsm_gp_off, tau, bin_size_ms,
-                                prior=prior, eps=cfg.eps_noise, maxiter=max(cfg.tau_maxiter, 12))
+                                prior=prior, eps=cfg.eps_noise, maxiter=max(cfg.tau_maxiter, 12),
+                                reduce=reduce)
     return learn_tau(inf.post_mean, inf.post_vsm_gp, tau, bin_size_ms, prior=prior,
-                     eps=cfg.eps_noise, maxiter=cfg.tau_maxiter)
+                     eps=cfg.eps_noise, maxiter=cfg.tau_maxiter, reduce=reduce)
 
 
-def _mstep_full(C, d, tau, Y, inf: InfRes, bin_size_ms, cfg: FitConfig):
-    """Unregularized M-step: (C, d) then tau, both from the E-step moments."""
-    cd = learn_cd(Y, inf.post_mean, inf.post_vsm, C, d, maxiter=cfg.cd_newton_iters)
-    return cd, _learn_tau_from_inf(inf, tau, bin_size_ms, cfg)
+def _mstep_full(C, d, tau, Y, inf: InfRes, bin_size_ms, cfg: FitConfig, reduce: Reduce = None):
+    """Unregularized M-step: (C, d) then tau, both from the E-step moments
+    (of all ranks' trials with ``reduce``)."""
+    cd = learn_cd(Y, inf.post_mean, inf.post_vsm, C, d, maxiter=cfg.cd_newton_iters,
+                  reduce=reduce)
+    return cd, _learn_tau_from_inf(inf, tau, bin_size_ms, cfg, reduce=reduce)
 
 
 def _online_mstep(n: int, C, d, tau, Yb, inf: InfRes, bin_size_ms, cfg: FitConfig, P, cumH):
@@ -368,6 +376,7 @@ def fit_loop(
     resume_from: Optional[str] = None,
     stop_after: Optional[int] = None,
     record_iter_sec: bool = False,
+    reduce: Reduce = None,
 ) -> FitResult:
     """:func:`fit` with checkpoint and resume (``pgpfa.em.fit.fit_loop``);
     :func:`fit` is this loop without them.
@@ -392,8 +401,16 @@ def fit_loop(
         record_iter_sec: time each iteration on the host clock, closed by a
             ``torch.cuda.synchronize()`` on the card; ``FitResult.iter_sec``,
             NaN for iterations restored from a checkpoint.
+        reduce: batch EM over the trials of several processes, ``Y`` holding
+            this one's: a callable that sums a tensor over all of them
+            (:mod:`pgpfa_torch.parallel` passes one). Every trial sum of the
+            E-steps and M-steps goes through it, so every process computes
+            the same parameters; ``newton_iters`` covers the local trials.
     """
     cfg = config or FitConfig()
+    if reduce is not None and cfg.em_mode == ONLINE:
+        raise NotImplementedError("online EM runs on one process: its minibatches cross the "
+                                  "trial shards (ROADMAP.md, queue 1)")
     p = init_params if isinstance(init_params, Params) else params_from_numpy(
         init_params, device, dtype)
     Y = torch.as_tensor(Y, dtype=p.C.dtype, device=p.C.device)
@@ -437,8 +454,8 @@ def fit_loop(
         if cfg.em_mode == BATCH:
             # the secant warm start 2 w_n - w_{n-1} (2 w - w = w at iteration 1)
             ex = None if warm is None else 2.0 * warm - warm_prev
-            inf, pll, vlb, warm_new = _estep(C, d, tau, Y, T, bin_size_ms, ex, cfg)
-            cd, tr = _mstep_full(C, d, tau, Y, inf, bin_size_ms, cfg)
+            inf, pll, vlb, warm_new = _estep(C, d, tau, Y, T, bin_size_ms, ex, cfg, reduce)
+            cd, tr = _mstep_full(C, d, tau, Y, inf, bin_size_ms, cfg, reduce)
             C, d, tau = cd.C, cd.d, tr.tau
             warm_prev = warm_new if warm is None else warm
             warm = warm_new

@@ -31,6 +31,7 @@ from pgpfa_torch.ops.blockmat import (
     inv_psd_structured,
     solve_psd_structured,
 )
+from pgpfa_torch.utils.reduce import Reduce, trial_mean
 
 
 class InfRes(NamedTuple):
@@ -162,6 +163,7 @@ def laplace_estep_from_arrays(
     maxiter: int = 100,
     compute_cov: bool = True,
     eps_noise: float = 0.001,
+    reduce: Reduce = None,
 ):
     """Batched Laplace inference over all trials.
 
@@ -172,6 +174,8 @@ def laplace_estep_from_arrays(
         weights: optional per-neuron weights ``(ydim,)``, or ``(R, ydim)``
             one row per trial (1 = keep).
         compute_cov: keep the full ``(R, xdim*T, xdim*T)`` posterior covariance.
+        reduce: sums over ranks (:mod:`pgpfa_torch.utils.reduce`); then
+            ``post_loglik`` is the mean over the trials of all ranks.
 
     Returns:
         ``(InfRes, post_loglik)`` with ``post_loglik = -mean(trial objectives)``.
@@ -204,7 +208,7 @@ def laplace_estep_from_arrays(
         trial_obj=obj,
         newton_iters=iters,
     )
-    return res, -obj.mean()
+    return res, -(obj.mean() if reduce is None else trial_mean(obj, reduce))
 
 
 def laplace_estep(params: Params, Y, T: int, bin_size_ms: float, **kw):

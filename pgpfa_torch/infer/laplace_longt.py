@@ -37,6 +37,7 @@ from pgpfa_torch.ops.blocktridiag import (
     btd_selected_inverse,
     btd_solve,
 )
+from pgpfa_torch.utils.reduce import Reduce, trial_mean
 
 
 class BandedInfRes(NamedTuple):
@@ -91,14 +92,6 @@ def _banded_dense(diag: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
         out[..., i[1:], :, i[:-1], :] = o
         out[..., i[:-1], :, i[1:], :] = o.transpose(-1, -2)
     return out.reshape(*lead, nb * s, nb * s)
-
-
-def require_f64(dtype):
-    """The banded path runs in f64 only."""
-    if dtype != torch.float64:
-        raise NotImplementedError(
-            f"the banded long-trial path (time_block) runs in float64 only, not {dtype}; "
-            "its f32 fast mode is not ported (ROADMAP.md, queue 1)")
 
 
 def _to_blocks(X: torch.Tensor, nb: int, s: int) -> torch.Tensor:
@@ -219,6 +212,7 @@ def laplace_estep_banded(
     weights=None,
     maxiter: int = 12,
     eps_noise: float = 0.001,
+    reduce: Reduce = None,
 ):
     """Batched banded-prior Laplace inference (the long-trial path), the
     counterpart of :func:`pgpfa_torch.infer.laplace.laplace_estep_from_arrays`.
@@ -228,12 +222,12 @@ def laplace_estep_banded(
     ``maxiter`` Newton bodies tries the full step and a quarter step, sets a
     non-finite candidate's objective to +inf and keeps the best point so far
     per trial; there is no early exit. ``weights`` are optional per-neuron
-    likelihood weights ``(ydim,)``.
+    likelihood weights ``(ydim,)``. With ``reduce`` (sums over ranks) the
+    mean runs over the trials of all ranks.
 
     Returns:
         ``(BandedInfRes, post_loglik)``, ``post_loglik = -mean(objectives)``.
     """
-    require_f64(C.dtype)
     R, ydim, _ = Y.shape
     xdim = C.shape[1]
     s = block_size
@@ -281,7 +275,7 @@ def laplace_estep_banded(
     vsm, gp_diag, gp_off = banded_posterior_views(factor_M(expA), Gc, nb, s, xdim)
     res = BandedInfRes(post_mean=_from_blocks(Xb, xdim), post_vsm=vsm, vsm_gp_diag=gp_diag,
                        vsm_gp_off=gp_off, trial_obj=f, grad_norm=Gb.abs().amax((-2, -1)))
-    return res, -f.mean()
+    return res, -(f.mean() if reduce is None else trial_mean(f, reduce))
 
 
 def pauto_sum_banded(inf: BandedInfRes) -> torch.Tensor:

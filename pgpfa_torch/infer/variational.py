@@ -36,6 +36,7 @@ from pgpfa_torch.ops.blockmat import (
     logdet_psd_mixed,
 )
 from pgpfa_torch.utils.optim import lbfgs_chunked_driver, lbfgs_fixed_init, lbfgs_fixed_steps
+from pgpfa_torch.utils.reduce import Reduce, trial_mean
 
 SOLVERS = ("newton", "lbfgs")
 # Iterations per chunk of the chunked driver (one host readback each).
@@ -180,6 +181,7 @@ def vi_estep_from_arrays(
     eps_noise: float = 0.001,
     ridge: float = 1e-6,
     solver: str = "lbfgs",
+    reduce: Reduce = None,
 ):
     """Batched dual variational inference over all trials (f64, or the f32
     fast mode).
@@ -191,6 +193,8 @@ def vi_estep_from_arrays(
         maxiter: iteration budget of the dual solve.
         solver: ``'lbfgs'`` or ``'newton'``; both drive the same dual
             gradient to ``gtol``.
+        reduce: sums over ranks (:mod:`pgpfa_torch.utils.reduce`); then
+            both means run over the trials of all ranks.
 
     Returns:
         ``(InfRes, post_loglik, var_lower_bound, rho)``: ``post_loglik`` is
@@ -218,7 +222,10 @@ def vi_estep_from_arrays(
         trial_obj=obj,
         newton_iters=torch.zeros((R,), dtype=torch.int32, device=C.device),
     )
-    return res, -obj.mean(), bound.mean(), rho
+    if reduce is None:
+        return res, -obj.mean(), bound.mean(), rho
+    means = trial_mean(torch.stack([obj, bound], 1), reduce)
+    return res, -means[0], means[1], rho
 
 
 def vi_estep(params, Y, T: int, bin_size_ms: float, **kw):

@@ -31,11 +31,11 @@ from pgpfa_torch.infer.laplace_longt import (
     _to_blocks,
     banded_posterior_views,
     banded_prior,
-    require_f64,
 )
 from pgpfa_torch.models.poisson_gpfa import hessian_weights, linear_predictor
 from pgpfa_torch.ops.blocktridiag import btd_factor, btd_selected_inverse, btd_solve
 from pgpfa_torch.utils.optim import lbfgs_chunked_driver, lbfgs_fixed_init, lbfgs_fixed_steps
+from pgpfa_torch.utils.reduce import Reduce, trial_mean
 
 # Iterations per chunk of the chunked driver (one host readback each).
 LBFGS_CHUNK = 25
@@ -102,19 +102,20 @@ def vi_estep_banded(
     maxiter: int = 150,
     eps_noise: float = 0.001,
     ridge: float = 1e-6,
+    reduce: Reduce = None,
 ):
     """Batched banded-prior dual variational inference (the long-trial path),
     the counterpart of
     :func:`pgpfa_torch.infer.variational.vi_estep_from_arrays` with the
     L-BFGS solver. ``block_size`` must divide ``T`` and satisfy
-    ``block_size * bin_size_ms >~ 6000 max(tau)``.
+    ``block_size * bin_size_ms >~ 6000 max(tau)``. With ``reduce`` (sums
+    over ranks) both means run over the trials of all ranks.
 
     Returns:
         ``(BandedInfRes, post_loglik, var_lower_bound, rho)``: ``post_loglik``
         is minus the mean banded Laplace objective at the posterior means,
         ``var_lower_bound`` the mean converged dual cost.
     """
-    require_f64(C.dtype)
     R, ydim, _ = Y.shape
     xdim = C.shape[1]
     s = block_size
@@ -145,4 +146,7 @@ def vi_estep_banded(
            + 0.5 * (xb * btd_solve(facK, xb)).sum((-2, -1)))
     res = BandedInfRes(post_mean=means, post_vsm=vsm, vsm_gp_diag=gp_diag, vsm_gp_off=gp_off,
                        trial_obj=obj, grad_norm=gnorm)
-    return res, -obj.mean(), bound.mean(), rho
+    if reduce is None:
+        return res, -obj.mean(), bound.mean(), rho
+    means = trial_mean(torch.stack([obj, bound], 1), reduce)
+    return res, -means[0], means[1], rho

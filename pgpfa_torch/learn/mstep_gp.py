@@ -29,6 +29,7 @@ from pgpfa_torch.models.params import (
 )
 from pgpfa_torch.ops.blockmat import inv_psd_mixed, logdet_psd_mixed, solve_psd_mixed, trace
 from pgpfa_torch.ops.blocktridiag import btd_factor, btd_selected_inverse, btd_solve
+from pgpfa_torch.utils.reduce import Reduce
 
 
 class TauResult(NamedTuple):
@@ -98,15 +99,21 @@ def learn_tau(
     prior: Optional[tuple] = None,
     eps: float = 0.001,
     maxiter: int = 12,
+    reduce: Reduce = None,
 ) -> TauResult:
     """Optimize every latent's timescale with ``maxiter`` guarded Newton steps.
 
     ``prior`` is an optional ``(old_tau (xdim,), stepsize)`` proximal penalty
     (online EM, :func:`tau_cost_with_prior`); its gradient and curvature in
-    ``p`` are added analytically (``dtau/dp = -tau/2``).
+    ``p`` are added analytically (``dtau/dp = -tau/2``). ``reduce`` (sums
+    over ranks) sums ``PautoSum`` and the trial count over all ranks once;
+    the Newton then runs the same on every rank.
     """
     precomp = pauto_sum(means, vsm_gps)
     num_trials = float(means.shape[0])
+    if reduce is not None:
+        tot = reduce(torch.cat([precomp.reshape(-1), precomp.new_full((1,), num_trials)]))
+        precomp, num_trials = tot[:-1].reshape(precomp.shape), float(tot[-1])
     T = precomp.shape[-1]
     dif_sq = time_sqdist(T, dtype=precomp.dtype, device=precomp.device)
     p0 = tau_to_log_gamma(tau0.reshape(-1), bin_size_ms)
@@ -206,13 +213,20 @@ def tau_cost_banded(p, means_blk, Vd, Vo, num_trials, eps: float = 0.001) -> tor
             trials.
         Vo: ``(L, nb-1, s, s)`` first off-diagonal blocks, block ``(i+1, i)``.
     """
+    logdet, quad, trv = _tau_cost_banded_terms(p, means_blk, Vd, Vo, eps)
+    return 0.5 * num_trials * logdet + 0.5 * (quad + trv)
+
+
+def _tau_cost_banded_terms(p, means_blk, Vd, Vo, eps: float):
+    """``(logdet K, sum_r m_r^T K^{-1} m_r, trv)`` of :func:`tau_cost_banded`;
+    only the middle one sums over local trials."""
     nb, s = Vd.shape[-3], Vd.shape[-1]
     fac = btd_factor(*_btd_kernel_blocks_p(p, nb, s, eps))
     rhs = means_blk.movedim(-3, -1)  # (L, nb, s, R): R right-hand sides
     quad = (rhs * btd_solve(fac, rhs)).sum((-3, -2, -1))
     sel = btd_selected_inverse(fac)
     trv = (sel.diag * Vd).sum((-3, -2, -1)) + 2.0 * (sel.off1 * Vo).sum((-3, -2, -1))
-    return 0.5 * num_trials * fac.logdet + 0.5 * (quad + trv)
+    return fac.logdet, quad, trv
 
 
 def learn_tau_banded(
@@ -225,6 +239,7 @@ def learn_tau_banded(
     prior: Optional[tuple] = None,
     eps: float = 0.001,
     maxiter: int = 16,
+    reduce: Reduce = None,
 ) -> TauResult:
     """Timescale M-step from banded posterior moments, O(T s^2).
 
@@ -240,28 +255,60 @@ def learn_tau_banded(
         prior: optional ``(old_tau (xdim,), stepsize)`` proximal penalty
             ``0.5 (tau - old_tau)^2 / stepsize^2`` (online EM), as in
             :func:`learn_tau`.
+        reduce: sums over ranks (:mod:`pgpfa_torch.utils.reduce`): ``Vd``,
+            ``Vo`` and the trial count are summed once, and the quadratic
+            term ``sum_r m_r^T K^{-1} m_r`` with its gradient on every
+            evaluation (an all-reduce is not differentiable, so the local
+            term's gradient is taken first).
     """
     R, xdim, nb, s, _ = vsm_gp_diag.shape
     num_trials = float(R if num_trials is None else num_trials)
     means_blk = means.reshape(R, xdim, nb, s).transpose(0, 1)  # (xdim, R, nb, s)
     Vd = vsm_gp_diag.sum(0)
     Vo = vsm_gp_off.sum(0)
+    if reduce is not None:
+        tot = reduce(torch.cat([Vd.reshape(-1), Vo.reshape(-1), Vd.new_full((1,), num_trials)]))
+        Vd, Vo = tot[:Vd.numel()].reshape(Vd.shape), tot[Vd.numel():-1].reshape(Vo.shape)
+        num_trials = float(tot[-1])
     p0 = tau_to_log_gamma(tau0.reshape(-1), bin_size_ms)
 
     def vg(p, k):
         """Cost and gradient of the lanes ``p`` on the latents ``k``."""
         with torch.enable_grad():
             p = p.detach().requires_grad_(True)
-            f = tau_cost_banded(p, means_blk[k], Vd[k], Vo[k], num_trials, eps)
+            if reduce is None:
+                f = tau_cost_banded(p, means_blk[k], Vd[k], Vo[k], num_trials, eps)
+            else:
+                # the local trials' share 0.5 sum_r m_r^T K^{-1} m_r, and its
+                # gradient, summed over ranks
+                logdet, quad, trv = _tau_cost_banded_terms(p, means_blk[k], Vd[k], Vo[k], eps)
+                (g_quad,) = torch.autograd.grad(quad.sum(), p, retain_graph=True,
+                                                allow_unused=True)
+                if g_quad is None:  # no local trials
+                    g_quad = torch.zeros_like(p)
+                L = p.shape[0]
+                tot = reduce(0.5 * torch.cat([quad.detach(), g_quad]))
+                f = 0.5 * num_trials * logdet + 0.5 * trv + tot[:L]
             if prior is not None:
                 old_tau, stepsize = prior
                 tau = log_gamma_to_tau(p, bin_size_ms)
                 f = f + 0.5 * (tau - old_tau.reshape(-1)[k]) ** 2 / stepsize**2
             (g,) = torch.autograd.grad(f.sum(), p)
+        if reduce is not None:
+            g = g + tot[L:]
         return f.detach(), g
 
     x, f, acc = _run_tau_secant(p0, torch.arange(xdim, device=p0.device), vg, maxiter)
     return TauResult(tau=log_gamma_to_tau(x, bin_size_ms), cost=f, niter=acc)
+
+
+# The f32 banded tau cost carries the rounding of f32 factors of the prior's
+# Schur complements (condition ~1e4 at eps 1e-3): ~7e-5 of |f| on
+# tests/test_torch_longt_f32.py's problem, more than the cost changes between
+# the secant's last iterates. Within this band of the best cost the secant
+# decides by the exact gradient's magnitude instead (the result is the same
+# for bands from 1e-4 to 1e-3 there).
+F32_COST_BAND = 1e-4
 
 
 def _run_tau_secant(p0, lane, vg, n_iter):
@@ -269,13 +316,20 @@ def _run_tau_secant(p0, lane, vg, n_iter):
     its curvature from the secant of consecutive exact gradients, tries the
     step and a 4x-damped one (one batched evaluation of both) and keeps the
     best objective seen. A rejected step keeps the best point but refreshes
-    the secant pair with the probe, so the next curvature uses it."""
+    the secant pair with the probe, so the next curvature uses it.
+
+    In f32 a candidate is also taken when its cost lies within
+    ``F32_COST_BAND (1 + |f|)`` of the best one and its gradient is smaller:
+    there the cost's rounding cannot tell the points apart (the JAX package
+    compares costs only, and its f32 secant stops where the rounding hides
+    the descent)."""
     lane2 = torch.cat([lane, lane])
     f, g = vg(p0, lane)
     xp = p0 + 0.05  # the secant pair starts from a small probe
     _, gp = vg(xp, lane)
     x = p0
     acc = torch.zeros(lane.shape, dtype=torch.int32, device=lane.device)
+    band = F32_COST_BAND if p0.dtype == torch.float32 else None
     for _ in range(n_iter):
         dx = x - xp
         h = torch.where(dx.abs() > 1e-14, (g - gp) / torch.where(dx == 0, 1.0, dx), 0.0)
@@ -291,7 +345,11 @@ def _run_tau_secant(p0, lane, vg, n_iter):
         f_new = torch.where(use2, f2, f1)
         x_new = torch.where(use2, cand2, cand1)
         g_new = torch.where(use2, g2, g1)
-        better = f_new < f
+        if band is None:
+            better = f_new < f
+        else:
+            slack = band * (1.0 + f.abs())
+            better = (f_new < f - slack) | ((f_new < f + slack) & (g_new.abs() < g.abs()))
         x, f, g, xp, gp = (torch.where(better, x_new, x), torch.where(better, f_new, f),
                            torch.where(better, g_new, g), torch.where(better, x, x_new),
                            torch.where(better, g, g_new))

@@ -25,6 +25,7 @@ import torch
 from pgpfa_torch.models.params import pack_cd, unpack_cd
 from pgpfa_torch.ops.blockmat import solve_psd_mixed
 from pgpfa_torch.utils.optim import minimize_lbfgs
+from pgpfa_torch.utils.reduce import Reduce, trial_count
 
 
 class CdResult(NamedTuple):
@@ -64,12 +65,15 @@ class _CdMoments:
     ``(ydim, s) @ (s, x^k)`` matmul against the current rates. Above xdim 8
     the ``x^4`` tensor is never formed: the Hessian's second-moment block is
     the weighted outer-product sum of ``u = m + V c`` per (neuron, sample).
-    ``theta (ydim, q)`` holds each neuron's ``[c, d]``, ``q = xdim + 1``."""
+    ``theta (ydim, q)`` holds each neuron's ``[c, d]``, ``q = xdim + 1``.
+    Every statistic is divided by ``R``, the local trial count, or by
+    ``num_trials`` where given (the count over all ranks)."""
 
-    def __init__(self, Y, means, vsms):
-        self.R, self.ydim, T = Y.shape
+    def __init__(self, Y, means, vsms, num_trials=None):
+        R, self.ydim, T = Y.shape
+        self.R = R if num_trials is None else num_trials
         self.xdim = xdim = means.shape[1]
-        s = self.R * T
+        s = R * T
         self.contraction = xdim > 8
         self.M2 = means.transpose(1, 2).reshape(s, xdim)  # (s, x)
         self.Vf = vsms.reshape(s, xdim * xdim)  # (s, x^2)
@@ -160,7 +164,7 @@ def cd_hessian(vec, Y, means, vsms) -> torch.Tensor:
 
 def learn_cd_newton(Y, means, vsms, C0, d0,
                     prior_blocks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                    n_iter: int = 10) -> CdResult:
+                    n_iter: int = 10, reduce: Reduce = None) -> CdResult:
     """All-neurons batched Newton for the (C, d) M-step, in f64 or f32, on
     the moment tensors of :class:`_CdMoments`.
 
@@ -174,13 +178,21 @@ def learn_cd_newton(Y, means, vsms, C0, d0,
     per-neuron penalty ``0.5 (th - c)^T P_n (th - c)`` (online EM); it enters
     the cost, the gradient and the Hessian, and the reported cost includes
     it.
+
+    ``reduce`` (sums over ranks, :mod:`pgpfa_torch.utils.reduce`) makes the
+    cost the mean over the trials of all ranks: the per-neuron costs, and
+    the gradients and Hessians packed in one tensor, are summed over ranks
+    each time they are computed, so every rank takes the same steps.
     """
     ydim, xdim = C0.shape
     q = xdim + 1
-    mom = _CdMoments(Y, means, vsms)
+    num_trials = None if reduce is None else trial_count(Y.shape[0], C0, reduce)
+    mom = _CdMoments(Y, means, vsms, num_trials)
 
     def cost_from(theta, rate):
         f = mom.cost(theta, rate)
+        if reduce is not None:
+            f = reduce(f)
         if prior_blocks is not None:
             Pb, center = prior_blocks
             dv = theta - center
@@ -189,6 +201,9 @@ def learn_cd_newton(Y, means, vsms, C0, d0,
 
     def grad_hess(theta, rate):
         g, H = mom.grad_hess(theta, rate)
+        if reduce is not None:
+            gH = reduce(torch.cat([g, H.reshape(ydim, q * q)], 1))
+            g, H = gH[:, :q], gH[:, q:].reshape(ydim, q, q)
         if prior_blocks is not None:
             Pb, center = prior_blocks
             g = g + torch.einsum("nqp,np->nq", Pb, theta - center)
@@ -222,18 +237,22 @@ def learn_cd_newton(Y, means, vsms, C0, d0,
 
 def learn_cd(Y, means, vsms, C0, d0,
              prior: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-             maxiter: int = 500, tol: float = 1e-9, method: str = "newton") -> CdResult:
+             maxiter: int = 500, tol: float = 1e-9, method: str = "newton",
+             reduce: Reduce = None) -> CdResult:
     """Optimize (C, d) from the current posterior moments.
 
     Without a prior, ``method='newton'`` runs the per-neuron batched Newton
     with ``min(maxiter, 10)`` steps. ``method='lbfgs'`` or a dense ``prior``
     ``(inv_prior_cov, center_vec)`` over the packed vector (:func:`pack_cd`
     order) runs :func:`minimize_lbfgs` to gradient ``tol`` over that vector.
+    ``reduce`` (sums over ranks) is taken by the Newton path only.
     """
     if method not in ("newton", "lbfgs"):
         raise ValueError(f"unknown method {method!r}")
     if method == "newton" and prior is None:
-        return learn_cd_newton(Y, means, vsms, C0, d0, n_iter=min(maxiter, 10))
+        return learn_cd_newton(Y, means, vsms, C0, d0, n_iter=min(maxiter, 10), reduce=reduce)
+    if reduce is not None:
+        raise NotImplementedError("the L-BFGS (C, d) M-step runs on one process")
     if prior is None:
         def fun(v):
             return cd_cost(v, Y, means, vsms)

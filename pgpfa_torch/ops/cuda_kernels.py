@@ -88,7 +88,10 @@ def chol32_smem_bytes(D: int) -> int:
     return _chol32_panel_bytes(D, chol32_panel_width(D))
 
 
-_MAX_GRID_Y = 65535
+# CUDA caps a grid's y and z extents at 65535; ns_step puts the batch on z
+# (csrc/ns_step.cu), so its wrapper launches once per slice of at most this
+# many matrices.
+MAX_GRID_Z = 65535
 
 
 def ns_step_plain(H32: torch.Tensor, X32: torch.Tensor) -> torch.Tensor:
@@ -139,24 +142,25 @@ def _launch(name: str, fn: str, device: torch.device, *args):
 
 def ns_step(H32: torch.Tensor, X32: torch.Tensor) -> torch.Tensor:
     """One Newton-Schulz step ``2 X - X (H X)`` for ``(B, D, D)`` or
-    ``(D, D)`` float32 matrices, any ``D``."""
+    ``(D, D)`` float32 matrices, any ``D`` and any ``B``: one launch per
+    slice of at most ``MAX_GRID_Z`` matrices."""
     if H32.device.type == "cpu" and X32.device.type == "cpu":
         return ns_step_plain(H32, X32)
     _check_batch("ns_step", H32, X32)
     squeeze = H32.dim() == 2
     H3, X3 = (H32[None], X32[None]) if squeeze else (H32, X32)
     B, D = H3.shape[0], H3.shape[-1]
-    if B > _MAX_GRID_Y:
-        raise ValueError(f"ns_step: batch {B} exceeds the grid's {_MAX_GRID_Y}")
     out = torch.empty_like(X3)
     if B and D:
         # the wide path keeps G = H X in a workspace in device memory; freed
-        # on return, it is reused only in this stream's order, after the launch
-        G = torch.empty_like(X3) if D > NS_STEP_SWITCH_D else None
-        _launch("ns_step", "pgpfa_ns_step", H3.device, H3.data_ptr(), X3.data_ptr(),
-                None if G is None else G.data_ptr(), out.data_ptr(), B, D)
-        ns_step.launches += 1
-        ns_step.launches_by_shape[(B, D)] += 1
+        # on return, it is reused only in this stream's order, after the launches
+        G = torch.empty_like(X3[:MAX_GRID_Z]) if D > NS_STEP_SWITCH_D else None
+        for lo in range(0, B, MAX_GRID_Z):
+            b = min(MAX_GRID_Z, B - lo)
+            _launch("ns_step", "pgpfa_ns_step", H3.device, H3[lo].data_ptr(), X3[lo].data_ptr(),
+                    None if G is None else G.data_ptr(), out[lo].data_ptr(), b, D)
+            ns_step.launches += 1
+            ns_step.launches_by_shape[(b, D)] += 1
     return out[0] if squeeze else out
 
 

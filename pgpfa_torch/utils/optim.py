@@ -159,7 +159,7 @@ def lbfgs_fixed_init(fun: Callable, x0: torch.Tensor, memory_size: int = 10):
     """Initial carry ``(x, f, g, S, Y, rho, gamma)`` of the fixed-iteration
     L-BFGS for the lanes ``x0 (R, *shape)``; ``x`` is flattened per lane."""
     R = x0.shape[0]
-    xf0 = x0.reshape(R, -1)
+    xf0 = x0.reshape(R, x0.shape[1:].numel())
     f0, g0 = _value_and_grad(fun, xf0, x0.shape[1:])
     n, m = xf0.shape[1], memory_size
     z = lambda *s: torch.zeros(*s, dtype=x0.dtype, device=x0.device)  # noqa: E731
@@ -271,7 +271,7 @@ def lbfgs_chunked_driver(
         f_after = carry[1]
         stop = (f_before - f_after <= slack_coef * (1.0 + f_after.abs())).all()
         if gtol is not None:
-            stop = stop | (carry[2].abs().amax() <= gtol)
+            stop = stop | (carry[2].abs() <= gtol).all()
         done = bool(stop)
         if done:
             break

@@ -380,6 +380,24 @@ def test_cuda_ns_step_offset_input(B, D):
 
 
 @requires_cuda
+def test_cuda_ns_step_batch_past_grid_limit():
+    """A batch of 65537 matrices, past the grid's z extent of 65535: two
+    launches, (65535, 8) and (2, 8), whose result is the plain version's
+    (2e-5 relative to max|X'|), the last matrices included."""
+    B, D = cuda_kernels.MAX_GRID_Z + 2, 8
+    H, X = _ns_inputs_cuda(B, D, 11)
+    n, by = ns_step.launches, dict(ns_step.launches_by_shape)
+    out = ns_step(H, X)
+    torch.cuda.synchronize()
+    assert ns_step.launches == n + 2
+    for shape in ((cuda_kernels.MAX_GRID_Z, D), (2, D)):
+        assert ns_step.launches_by_shape[shape] == by.get(shape, 0) + 1
+    want = ns_step_plain(H, X)
+    assert float((out - want).abs().max()) <= 2e-5 * float(want.abs().max())
+    assert float((out[-2:] - want[-2:]).abs().max()) <= 2e-5 * float(want[-2:].abs().max())
+
+
+@requires_cuda
 def test_cuda_ns_step_unbatched():
     """A (D, D) pair gives a (D, D) result, the batched call's matrix."""
     H, X = _ns_inputs_cuda(3, 140, 5)

@@ -6,6 +6,9 @@ tolerance. Sizes stay small (xdim 2-3, ydim <= 20, T <= 50, R <= 5).
 """
 
 import functools
+import os
+import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -79,3 +82,45 @@ def longt_problem():
     init = {"C": C + 0.1, "d": d, "tau": np.array([0.035, 0.035])}
     w = np.random.default_rng(4).uniform(0.2, 1.0, ydim)
     return dict(C=C, d=d, tau=tau, Y=Y, T=T, bin_ms=bin_ms, s=16, init=init, w=w)
+
+
+def _rank_main(rank, world, tmp, fn, args):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=world)
+    try:
+        torch.save(fn(rank, world, *args), os.path.join(tmp, f"out{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(world: int, fn, *args, timeout: float = 120.0):
+    """Run ``fn(rank, world, *args)`` in ``world`` forked CPU processes joined
+    by a gloo process group (a ``file://`` store); returns each rank's return
+    value, in rank order. A rank that raises fails the call, and so does one
+    that is still running after ``timeout`` seconds (all are then killed)."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(_rank_main, args=(world, tmp, fn, args), nprocs=world,
+                                 join=False, start_method="fork")
+        deadline = time.monotonic() + timeout
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"ranks still running after {timeout} s")
+        return [torch.load(os.path.join(tmp, f"out{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+
+def parallel_problem():
+    """tests/test_parallel.py's problem: 16 trials x 16 neurons, 30 bins of
+    20 ms, xdim 2, seed 4, init seed 0 (the port's NumPy data path)."""
+    from pgpfa_torch import dataset, initialize_params
+
+    ds = dataset(xdim=2, ydim=16, numTrials=16, trialDur=600, binSize=20, dOffset=0.5,
+                 fixTau=True, fixedTau=np.array([0.15, 0.3]), seed=4)
+    return ds, initialize_params(2, 16, ds, seed=0)
