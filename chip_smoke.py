@@ -17,7 +17,8 @@ Phases (any failure raises and the exit code is not 0):
    on inputs one float off 16-byte alignment (``offset_ms``, its 4-byte
    copy path), and checked at the widest width ``chol32`` factors,
    (2, 1792, 1792), correctness only; and at (65537, 8, 8), past the grid's
-   z extent, where it must launch twice.
+   z extent, where it must launch twice; both on an empty batch (an idle
+   rank's minibatch): no launch, no fault.
 4. hessian: the backward error ``||L L^T - A||_F / ||A||_F`` of ``chol32``
    on the slice's first Newton Hessians (100, 700, 700), at most twice
    cuSOLVER's on the same matrices, matrix by matrix.
@@ -117,8 +118,37 @@ Phases (any failure raises and the exit code is not 0):
     ``ns_step`` at (5, 140, 140) on each rank. (c) The same ranks: one banded
     f64 iteration at T = 1000 of 8 long trials each, against the longt
     phase's iteration 1. (d) ``sharded_estep_stats``' PautoSum from the two
-    ranks against one process's. One ``sharded row: {json}`` line with the
-    s/EM-iteration of world 1, world 2 and the slice.
+    ranks against one process's, and a Laplace E-step of no trials. (e) Online ``'diag'`` EM, joint (C, d),
+    batch 10 on the online phase's stream over all 100 trials, 3 iterations
+    after a one-iteration warm-up, in world 1 (against the online phase's
+    fit, 1e-12) and in world 2 (each rank E-steps its rows of each
+    minibatch: ``chol32`` must launch at each of those batch sizes; held as
+    (b) against the online phase's fit, iteration 1 also against the
+    oracle); (f) one iteration each of the C-only ``'diag'`` (L-BFGS, every
+    evaluation one collective) and ``'grad'`` rules in world 2, held the
+    same way against the online phase's card fits. The ranks' results are
+    bit-equal. One ``sharded row: {json}`` line with the s/EM-iteration of
+    world 1, world 2 (per rank) and one process, batch and online.
+15. compat: a reference user's script with the import swapped
+    (``pgpfa_torch.compat``), at the Stevenson width. A Stevenson-schema
+    ``.mat`` (90 units x 200 windows of 1400 ms, uint8, the surrogate's 100
+    trials in the second half) written to a temporary directory and read by
+    ``compat.datamanager.StevensonDataset``: ``Y`` equal to the
+    surrogate's. ``compat.util.initializeParams`` and
+    ``compat.engine.PPGPFAfit`` (batch, 3 iterations): iteration 1 against
+    the oracle as in the slice phase. At the fit's parameters, each of
+    ``compat.inference.laplace``, ``dualVariational(optimizeLogLambda=True)``
+    (all 100 trials on the card; the first trial cold on the card, its
+    bound against the converged dual-Newton bound, then warm-started from
+    the dual-Newton answer on the card and the CPU, each held to the other
+    and to that answer),
+    ``learning.updateParams``, ``updateParamsWithPrior`` (joint
+    ``'useDiag'``), ``updateParamsWithGradDescent``, ``util.getCdErrorBars``
+    and ``mcmc.PosteriorMCMC`` (one trial, 200 samples, equal to
+    ``posterior_mcmc_from_arrays`` on the card, whose draws the CPU replays)
+    on the card against the same call on the CPU; ``chol32``
+    at (100, 700, 700) and ``ns_step`` at (5, 140, 140) launched. One
+    ``compat row: {json}`` line with each call's seconds.
 
 The last three lines of standard output are one JSON object with the
 kernels' numbers, the ``nvidia-smi`` name and power limit, and
@@ -288,6 +318,34 @@ LONGT_F32_PLL_ENV, LONGT_F32_TAU_ENV = 6e-2, 5e-3
 SHARDED_W1_REL = 1e-12
 SHARDED_PLL1_REL = 1e-9
 SHARDED_PAUTO_REL = 1e-10
+# The compat phase, each call on the card against the same call on the CPU
+# at tests/test_torch_compat.py's tolerances: Laplace modes 1e-8 relative,
+# post_vsm 5e-6; its nPLL 1e-9 relative (the card-against-CPU E-step's,
+# WIDE_PLL_TOL; the test's 1e-12 holds two packages on one CPU); M-step
+# parameters 2e-5 and costs 1e-6; curvature, prior precision and error bars
+# 1e-6 relative. The L-BFGS dual (the reference's rho path) of the first
+# trial, run cold, stops on its 150-iteration budget at the fitted
+# parameters, so its card and CPU iterates part on their rounding: its bound
+# is held to the converged dual-Newton bound (solved on the CPU), COMPAT_DUAL_GAP_REL
+# relative. Card against CPU, the same call is warm-started from the
+# dual-Newton answer (the reference's prevOptimRes), where its budget
+# converges; there both devices' bound, nPLL and means are held to each
+# other and to the dual-Newton answer at the test's tolerances: 1e-7 on the
+# bound and the nPLL of its problem (-280.8 and -163.9), taken relative
+# here (the card, whose rounding moves it off the CPU's optimum, ends 5e-11
+# from it in the bound and 5.6e-7 in the nPLL, 1.2e-10 relative), and 1e-5
+# on the means.
+# One departure, measured on NVIDIA H100 80GB HBM3 (700 W): the MCMC chain's
+# samples, the CPU replaying the card's draws with the same accept decisions
+# on its own f32 prior factor (the card's chol32 and the CPU's Cholesky
+# round apart by ~1e-7 of the factor, and 200 transitions carry it):
+# 3.6e-4 apart; held to four times that, rounded up.
+COMPAT_MODE_REL, COMPAT_PLL_REL, COMPAT_COV_REL = 1e-8, 1e-9, 5e-6
+COMPAT_DUAL_BOUND_REL, COMPAT_DUAL_PLL_REL = 1e-7 / 280.8, 1e-7 / 163.9
+COMPAT_DUAL_MEAN_TOL = 1e-5
+COMPAT_DUAL_GAP_REL = 1.5e-6
+COMPAT_PARAM_TOL, COMPAT_COST_TOL, COMPAT_CURV_REL = 2e-5, 1e-6, 1e-6
+COMPAT_MCMC_TOL = 1.5e-3
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -397,10 +455,11 @@ def phase_kernels():
     # MCMC prior factor of bench.py's synthetic rows (2, 50, 50) and the
     # leave-one-out scoring of the CV sweep's 2 test trials (180, 700, 700),
     # the banded long-trial path's posterior blocks (16, 100, 100) and tau
-    # lanes (4, 50, 50), and the Hessians of one of the sharded phase's two
-    # ranks (50, 700, 700).
+    # lanes (4, 50, 50), the Hessians of one of the sharded phase's two
+    # ranks (50, 700, 700), and a rank's rows of a sharded online minibatch
+    # (5, 700, 700).
     for B, D in [(100, 700), (5, 140), (10, 140), (90, 6), (4, 260), (10, 700), (1, 450),
-                 (2, 50), (180, 700), (16, 100), (4, 50), (50, 700)]:
+                 (2, 50), (180, 700), (16, 100), (4, 50), (50, 700), (5, 700)]:
         A = spd(B, D, 0.5, seed=B * 1000 + D)
         L, Lp = chol32(A), chol32_plain(A)
         torch.cuda.synchronize()
@@ -418,6 +477,16 @@ def phase_kernels():
     if not (torch.isnan(Lbad[0][lower]).all() and torch.equal(Lbad[1], 2.0 * torch.eye(3, device="cuda"))):
         raise RuntimeError(f"chol32 non-PD semantics broken: {Lbad.cpu()}")
     log("chol32 non-PD matrix: NaN lower triangle, PD neighbour exact")
+
+    # an idle rank's empty minibatch: no launch and no fault
+    n_c, n_n = chol32.launches, ns_step.launches
+    E0 = torch.empty(0, 700, 700, device="cuda")
+    L0, X0 = chol32(E0), ns_step(E0, E0)
+    torch.cuda.synchronize()
+    if not (L0.shape == X0.shape == E0.shape and chol32.launches == n_c
+            and ns_step.launches == n_n):
+        raise RuntimeError("chol32 or ns_step launched or faulted on an empty batch")
+    log("chol32 and ns_step on an empty (0, 700, 700) batch: empty results, no launch")
 
     # ns_step: the prior inverse / tau-derivative blocks (5, 140, 140), the
     # Laplace-Hessian width (100, 700, 700), a width just past the switch
@@ -968,7 +1037,9 @@ def phase_online():
     """f64 online EM at full width, batch 10: the anchor against the oracle,
     every other rule and path on the card against the CPU, and a warm
     iteration of each ``'diag'`` path timed by phase. Returns the launches
-    of the anchor fit and the card runs of (b), summed."""
+    of the anchor fit and the card runs of (b), summed, and ``(anchor fit,
+    its stream, {C-only rule: the card's fit of (b)}, s/EM-iteration)`` for
+    the sharded phase."""
     from pgpfa_torch import FitConfig, fit, initialize_params, stevenson_surrogate
     from pgpfa_torch.ops.cuda_kernels import chol32, ns_step
 
@@ -1025,6 +1096,7 @@ def phase_online():
              + [dict(online_update=r, update_cd_jointly=False) for r in ("diag", "grad", "hess")]
              + [dict(online_update=r, fully_update_tau=True) for r in ("balancingGamma", "diag")])
     worst = {"pll1": 0.0, "param": 0.0, "pll2": 0.0}
+    c_only = {}
     for kw in paths:
         reset_counts()
         t0 = time.time()
@@ -1057,6 +1129,8 @@ def phase_online():
             raise RuntimeError(f"online {kw}: the card disagrees with the CPU")
         if kw == dict(online_update="grad", update_cd_jointly=False) and not n450 > 0:
             raise RuntimeError("online C-only 'grad' must launch chol32 at (1, 450)")
+        if kw.get("update_cd_jointly") is False:
+            c_only[kw["online_update"]] = g
     log(f"online card vs CPU, worst over the paths: iteration-1 post_loglik {worst['pll1']:.3e} "
         f"relative (tolerance {ONLINE_DEV_PLL1_REL:.0e}), parameters {worst['param']:.3e} "
         f"(tolerance {ONLINE_DEV_PARAM_TOL:.0e}), iteration-2 post_loglik {worst['pll2']:.3e} "
@@ -1065,7 +1139,7 @@ def phase_online():
     # (c) one warm iteration of each 'diag' path, timed by phase
     for joint in (True, False):
         online_phase_split(res, ds, idx[-1], n_iter - 1, joint)
-    return total, wall / n_iter
+    return total, (res, idx, c_only, wall / n_iter)
 
 
 def online_phase_split(res, ds, rows, n, joint):
@@ -1663,12 +1737,15 @@ def phase_longt():
     return total, launches_f32, fits[1000]
 
 
-def _sharded_rank(rank, world, store, out_dir, stev, longt):
+def _sharded_rank(rank, world, store, out_dir, stev, longt, stream):
     """One rank of the sharded phase's world 2 (spawned; gloo over the one
     card). (b) f64 Laplace EM of its 50 Stevenson trials through
     ``fit_multihost``, after a one-iteration warm-up; (c) one banded f64
-    iteration of its 8 long trials; (d) ``sharded_estep_stats`` at the init.
-    Writes its results to ``out_dir``; any failure raises in the parent."""
+    iteration of its 8 long trials; (d) ``sharded_estep_stats`` at the init;
+    (e) online ``'diag'`` EM, joint (C, d), batch 10 on ``stream`` over all
+    100 trials, 3 iterations after a one-iteration warm-up; (f) one
+    iteration each of the C-only ``'diag'`` and ``'grad'`` rules. Writes its
+    results to ``out_dir``; any failure raises in the parent."""
     import torch.distributed as dist
 
     from pgpfa_torch import FitConfig
@@ -1710,15 +1787,34 @@ def _sharded_rank(rank, world, store, out_dir, stev, longt):
         stats = sharded_estep_stats(p.C, p.d, p.tau, torch.as_tensor(Yl, device="cuda"),
                                     Y.shape[-1], bin_ms)
         out["pauto"], out["obj_sum"], out["n"] = (t.cpu() for t in stats[3:])
+
+        def online(name, n, **kw):
+            cfg = FitConfig(em_mode="online", batch_size=stream.shape[1], max_em_iter=n, **kw)
+            reset_counts()
+            dist.barrier()
+            t0 = time.time()
+            r = fit_multihost(init, Yl, bin_ms, cfg, device="cuda", batch_indices=stream[:n])
+            torch.cuda.synchronize()
+            out[name + "_sec"] = (time.time() - t0) / n
+            out[name + "_launches"] = read_counts()
+            out[name + "_shapes"] = {k.__name__: dict(k.launches_by_shape) for k in (chol32, ns_step)}
+            out[name] = {k: getattr(r, k).cpu() for k in ("post_loglik", "C_seq", "d_seq", "tau_seq",
+                                                         "cd_cost")}
+            out[name + "_newton_iters"] = r.newton_iters.cpu()
+
+        online("online_warmup", 1)
+        online("online", 3)
+        for rule in ("diag", "grad"):
+            online("conly_" + rule, 1, online_update=rule, update_cd_jointly=False)
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
-def phase_sharded(slice64, longt64):
+def phase_sharded(slice64, longt64, online64):
     """Trial-parallel EM over ``torch.distributed`` (see the module
     docstring, phase 14). Returns the launches of its fits, summed over the
-    world-1 fit and both ranks of world 2."""
+    world-1 fits and both ranks of world 2."""
     import tempfile
 
     import torch.distributed as dist
@@ -1734,6 +1830,9 @@ def phase_sharded(slice64, longt64):
 
     t_phase = time.time()
     res_slice, sec_slice = slice64
+    res_online, stream, c_only, sec_online = online64
+    n_on = 3
+    oracle_online = json.loads((REPO / "ORACLE_ONLINE_TRAJ.json").read_text())
     ds = stevenson_surrogate(xdim=5, seed=2011)
     init = initialize_params(5, ds.ydim, ds, seed=0)
     bin_ms = float(ds.binSize)
@@ -1762,6 +1861,14 @@ def phase_sharded(slice64, longt64):
             counts = read_counts()
             shapes = {k.__name__: dict(k.launches_by_shape) for k in (chol32, ns_step)}
             backend = dist.get_backend()
+            # (e)'s online fit, world 1
+            ocfg = FitConfig(em_mode="online", batch_size=stream.shape[1], max_em_iter=n_on)
+            reset_counts()
+            t0 = time.time()
+            w1_on = fit_sharded(init, ds.Y, bin_ms, ocfg, batch_indices=stream[:n_on])
+            torch.cuda.synchronize()
+            sec_w1_on = (time.time() - t0) / n_on
+            counts_on = read_counts()
         finally:
             dist.destroy_process_group()
     rel, dC, dtau = diffs(w1._asdict(), slice_fit)
@@ -1773,14 +1880,25 @@ def phase_sharded(slice64, longt64):
         raise RuntimeError("sharded: the world-1 fit disagrees with the slice's, or a kernel "
                            "did not launch at the path's shapes")
     for k in total:
-        total[k] += counts[k]
+        total[k] += counts[k] + counts_on[k]
+    on_want = {"post_loglik": res_online.post_loglik[:n_on], "C": res_online.C_seq[n_on - 1],
+               "tau": res_online.tau_seq[n_on - 1]}
+    rel, dC, dtau = diffs({"post_loglik": w1_on.post_loglik, "C": w1_on.C, "tau": w1_on.tau},
+                          on_want)
+    log(f"sharded (a) world 1 over {backend}: online 'diag', batch {stream.shape[1]}, {n_on} "
+        f"iterations, {sec_w1_on:.4f} s/EM-iteration (one process {sec_online:.4f}); against "
+        f"the online phase's fit: nPLL relative {rel:.3e} (tolerance {SHARDED_W1_REL:.0e}), C "
+        f"{dC:.3e}, tau {dtau:.3e}; launches {counts_on}")
+    if not (max(rel, dC, dtau) <= SHARDED_W1_REL and min(counts_on.values()) > 0):
+        raise RuntimeError("sharded: the world-1 online fit disagrees with the one-process "
+                           "online fit, or a kernel did not launch")
 
-    # (b)-(d) world 2 over gloo: two spawned ranks on the one card
+    # (b)-(f) world 2 over gloo: two spawned ranks on the one card
     longt = long_trial_problem(1000)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.time()
         mp.start_processes(_sharded_rank, nprocs=2, start_method="spawn",
-                           args=(2, f"{tmp}/store", tmp, (init, ds.Y, bin_ms), longt))
+                           args=(2, f"{tmp}/store", tmp, (init, ds.Y, bin_ms), longt, stream))
         t_spawn = time.time() - t0
         outs = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(2)]
     for r, o in enumerate(outs):
@@ -1794,6 +1912,22 @@ def phase_sharded(slice64, longt64):
                                f"ns_step at (5, 140, 140), or the banded path's kernels")
         for k in total:
             total[k] += o["launches"][k] + o["band_launches"][k]
+        # (e), (f): the rank's rows of each minibatch, and chol32 at that batch
+        lo, hi = 50 * r, 50 * (r + 1)
+        local = [int(((row >= lo) & (row < hi)).sum()) for row in stream[:n_on]]
+        log(f"sharded rank {r} online: 'diag' {o['online_sec']:.4f} s/EM-iteration, its rows of "
+            f"each minibatch {local}, launches {o['online_launches']}, by (B, D) "
+            f"{o['online_shapes']}; C-only 'diag' {o['conly_diag_sec']:.4f} s, 'grad' "
+            f"{o['conly_grad_sec']:.4f} s, launches {o['conly_diag_launches']} and "
+            f"{o['conly_grad_launches']}")
+        if not (all(o["online_shapes"]["chol32"].get((b, 700), 0) > 0 for b in local if b)
+                and o["online_launches"]["ns_step"] > 0
+                and all(min(o[f"conly_{x}_launches"].values()) > 0 for x in ("diag", "grad"))):
+            raise RuntimeError(f"sharded: rank {r} did not launch chol32 at its minibatch "
+                               f"shapes {local} or ns_step in the online fits")
+        np.testing.assert_array_equal((o["online_newton_iters"].numpy() >= 0).sum(1), local)
+        for k in total:
+            total[k] += sum(o[f"{x}_launches"][k] for x in ("online", "conly_diag", "conly_grad"))
     failed = []
 
     def held(label, got, want):
@@ -1815,7 +1949,8 @@ def phase_sharded(slice64, longt64):
             failed.append(label)
 
     same = all(torch.equal(outs[0][key][k], outs[1][key][k])
-               for key in ("fit", "band") for k in outs[0][key])
+               for key in ("fit", "band", "online", "conly_diag", "conly_grad")
+               for k in outs[0][key])
     log(f"sharded (b) world 2 over gloo, 50 trials per rank: the ranks' results bit-equal: "
         f"{same}; spawn and run {t_spawn:.1f} s")
     if not same:
@@ -1823,6 +1958,16 @@ def phase_sharded(slice64, longt64):
     held("(b) world 2 against the slice's fit", outs[0]["fit"], slice_fit)
     held("(c) banded T=1000, 8 trials per rank, against the longt phase's iteration 1",
          outs[0]["band"], {k: getattr(longt64, k)[:1] for k in outs[0]["band"]})
+    held(f"(e) online 'diag' joint, batch {stream.shape[1]}, against the one-process online fit",
+         outs[0]["online"], {k: getattr(res_online, k)[:n_on] for k in outs[0]["online"]})
+    d_or = abs(float(outs[0]["online"]["post_loglik"][0]) - oracle_online["post_loglik"][0])
+    log(f"sharded (e) iteration 1 against the oracle: {d_or:.3e} (tolerance {ONLINE_PLL_TOL1:.0e})")
+    if not d_or <= ONLINE_PLL_TOL1:
+        failed.append("(e) iteration 1 off the oracle")
+    for rule in ("diag", "grad"):
+        held(f"(f) C-only '{rule}', one iteration, against the online phase's card fit",
+             outs[0]["conly_" + rule], {k: getattr(c_only[rule], k)[:1]
+                                        for k in outs[0]["conly_" + rule]})
 
     # (d) PautoSum of the two ranks against one process on the card; and
     # whether an E-step of trials 0-49 gives the same modes and covariances
@@ -1835,6 +1980,10 @@ def phase_sharded(slice64, longt64):
     obj_rel = abs(float(outs[0]["obj_sum"]) - float(inf.trial_obj.sum())) / abs(
         float(inf.trial_obj.sum()))
     half, _ = laplace_estep_from_arrays(p.C, p.d, p.tau, Yc[:50], ds.T, bin_ms, compute_cov=False)
+    none, _ = laplace_estep_from_arrays(p.C, p.d, p.tau, Yc[:0], ds.T, bin_ms, compute_cov=False)
+    torch.cuda.synchronize()
+    if not none.post_mean.shape == (0, 5, ds.T):
+        failed.append("(d) the E-step of an idle rank's empty minibatch")
     d_mean = float((half.post_mean - inf.post_mean[:50]).abs().max())
     d_vsm = float((half.post_vsm - inf.post_vsm[:50]).abs().max() / inf.post_vsm.abs().max())
     log(f"sharded (d) sharded_estep_stats: PautoSum relative {rel_p:.3e} (tolerance "
@@ -1849,10 +1998,209 @@ def phase_sharded(slice64, longt64):
     row = {"metric": "sharded f64 Laplace EM iteration (Stevenson surrogate, 100 trials)",
            "unit": "s/EM-iteration", "world1_nccl": sec_w1,
            "world2_gloo_one_card": max(o["sec"] for o in outs), "slice": sec_slice,
-           "banded_T1000_world2": max(o["band_sec"] for o in outs)}
+           "banded_T1000_world2": max(o["band_sec"] for o in outs),
+           "online_world1_nccl": sec_w1_on,
+           "online_world2_gloo_one_card_per_rank": [o["online_sec"] for o in outs],
+           "online_one_process": sec_online,
+           "conly_diag_world2_per_rank": [o["conly_diag_sec"] for o in outs],
+           "conly_grad_world2_per_rank": [o["conly_grad_sec"] for o in outs]}
     log(f"sharded row: {json.dumps(row)}")
     log(f"sharded phase: {time.time() - t_phase:.1f} s")
     return total
+
+
+def phase_compat():
+    """A reference user's script with the import swapped, at the Stevenson
+    width (see the module docstring, phase 15). Returns the launches of its
+    card calls."""
+    import tempfile
+    import types
+
+    import scipy.io as sio
+
+    from pgpfa_torch import posterior_mcmc_from_arrays, stevenson_surrogate
+    from pgpfa_torch.compat import datamanager, engine, inference, learning, mcmc, util
+    from pgpfa_torch.convert import params_from_numpy
+    from pgpfa_torch.infer.mcmc import ReplayDraws, SeededDraws
+    from pgpfa_torch.infer.variational import vi_estep_from_arrays
+    from pgpfa_torch.ops.cuda_kernels import chol32, ns_step
+
+    t_phase = time.time()
+    oracle = json.loads((REPO / "ORACLE_TRAJ_STEVENSON.json").read_text())
+    sur = stevenson_surrogate(xdim=5, seed=2011)
+    R, ydim, T = sur.Y.shape
+    bin_ms, dur = int(sur.binSize), int(sur.trialDur)
+    if not sur.Y.max() < 256:
+        raise RuntimeError("compat: a count does not fit the file's one-byte integers")
+    # the recording's schema: 200 windows of 1400 ms, the surrogate's trials
+    # in the second half, each bin's count in the first ms column of the bin
+    spikes = np.zeros((ydim, 2 * R * dur), dtype=np.uint8)
+    cols = R * dur + np.arange(R)[:, None] * dur + np.arange(T)[None, :] * bin_ms
+    spikes[:, cols.reshape(-1)] = sur.Y.transpose(1, 0, 2).reshape(ydim, R * T)
+    times, failed = {}, []
+
+    def card(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.time() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/stevenson.mat"
+        sio.savemat(path, {"spikes": spikes, "timeBase": np.arange(spikes.shape[1])})
+        mb = Path(path).stat().st_size / 2**20
+        t0 = time.time()
+        ds = datamanager.StevensonDataset(path, trialDur=dur, binSize=bin_ms)
+        times["load"] = time.time() - t0
+    same_y = ds.Y.shape == sur.Y.shape and bool(np.array_equal(ds.Y, sur.Y))
+    log(f"compat: a {mb:.1f} MiB Stevenson-schema .mat ({ydim} units x {2 * R} windows of "
+        f"{dur} ms, uint8) loaded by compat.datamanager.StevensonDataset in {times['load']:.2f} "
+        f"s: Y {ds.Y.shape}, equal to the surrogate's: {same_y}")
+    if not same_y:
+        raise RuntimeError("compat: the loader's Y differs from the surrogate's")
+
+    init = util.initializeParams(5, ds.ydim, ds)
+    reset_counts()
+    fit = card("PPGPFAfit_3_iterations", lambda: engine.PPGPFAfit(
+        experiment=ds, initParams=init, EMmode="Batch", maxEMiter=3))
+    pll = np.asarray(fit.posteriorLikelihood)
+    d1 = abs(pll[0] - oracle["post_loglik"][0])
+    log(f"compat engine.PPGPFAfit, 3 iterations: nPLL {pll.tolist()}; iteration 1 against the "
+        f"oracle {d1:.3e} (tolerance {PLL_TOL:.0e}); launches {read_counts()}")
+    if not (d1 <= PLL_TOL and np.all(np.isfinite(pll))):
+        failed.append("PPGPFAfit iteration 1 off the oracle")
+
+    params = fit.optimParams
+    res_g, pll_g, _ = card("laplace", lambda: inference.laplace(ds, params))
+    t0 = time.time()
+    res_c, pll_c, _ = inference.laplace(ds, params, device="cpu")
+    t_cpu = {"laplace": time.time() - t0}
+    vi_g = card("dualVariational_100_trials", lambda: inference.dualVariational(
+        ds, params, optimizeLogLambda=True))
+    one = types.SimpleNamespace(data=ds.data[:1], binSize=ds.binSize, trialDur=ds.trialDur)
+    vi1_g = card("dualVariational_1_trial", lambda: inference.dualVariational(
+        one, params, optimizeLogLambda=True))
+    # the trial's converged dual-Newton answer (on the CPU: it is not a
+    # compat call), then the shim warm-started from it on both devices
+    t0 = time.time()
+    p = params_from_numpy(params, "cpu")
+    inf_n, pll_n, vlb_n, rho_n = vi_estep_from_arrays(
+        p.C, p.d, p.tau, torch.as_tensor(ds.Y[:1], dtype=torch.float64), T, float(bin_ms),
+        compute_cov=False, solver="newton")
+    t_cpu["dual_newton_1_trial"] = time.time() - t0
+    pll_n, vlb_n = float(pll_n), float(vlb_n)
+    means_n = inf_n.post_mean.numpy()
+    start = list(rho_n.reshape(1, -1).numpy())
+    vi1w_g = card("dualVariational_1_trial_warm", lambda: inference.dualVariational(
+        one, params, optimizeLogLambda=True, prevOptimRes=start))
+    t0 = time.time()
+    vi1w_c = inference.dualVariational(one, params, optimizeLogLambda=True, prevOptimRes=start,
+                                       device="cpu")
+    t_cpu["dualVariational_1_trial_warm"] = time.time() - t0
+
+    def rel(a, b):
+        a, b = np.asarray(a, float), np.asarray(b, float)
+        return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
+
+    def dual_gaps(a, b_bound, b_pll, b_means):
+        """Bound and nPLL relative, means absolute."""
+        return (abs(a[2] - b_bound) / abs(b_bound), abs(a[1] - b_pll) / abs(b_pll),
+                float(np.max(np.abs(np.stack(a[0]["post_mean"]) - b_means))))
+
+    checks = {
+        "laplace modes": (rel(np.stack(res_g["post_mean"]), np.stack(res_c["post_mean"])),
+                          COMPAT_MODE_REL),
+        "laplace nPLL": (abs(pll_g - pll_c) / abs(pll_c), COMPAT_PLL_REL),
+        "laplace post_vsm": (rel(np.stack(res_g["post_vsm"]), np.stack(res_c["post_vsm"])),
+                             COMPAT_COV_REL),
+    }
+    dual_tols = (COMPAT_DUAL_BOUND_REL, COMPAT_DUAL_PLL_REL, COMPAT_DUAL_MEAN_TOL)
+    for against, ref in (("CPU", (vi1w_c[2], vi1w_c[1], np.stack(vi1w_c[0]["post_mean"]))),
+                         ("dual-Newton", (vlb_n, pll_n, means_n))):
+        for side, got in (("card", vi1w_g), ("CPU", vi1w_c)):
+            if side == against:
+                continue
+            for what, v, tol in zip(("bound", "nPLL", "means"), dual_gaps(got, *ref), dual_tols):
+                checks[f"dual (trial 1, warm) {side} {what} against {against}"] = (v, tol)
+    cold = dual_gaps(vi1_g, vlb_n, pll_n, means_n)
+    checks["dual (trial 1, cold) card bound against dual-Newton"] = (cold[0],
+                                                                     COMPAT_DUAL_GAP_REL)
+    log(f"compat: the cold 1-trial dual on the card against dual-Newton's (its budget ends "
+        f"first; only the bound is held): bound {cold[0]:.3e} and nPLL {cold[1]:.3e} "
+        f"relative, means {cold[2]:.3e}")
+
+    # the M-steps at the card's E-step, card against CPU on identical inputs
+    def both(name, fn):
+        got = card(name, lambda: fn("cuda"))
+        t0 = time.time()
+        want = fn("cpu")
+        t_cpu[name] = time.time() - t0
+        return got, want
+
+    def params_diff(a, b):
+        return max(float(np.max(np.abs(np.asarray(a[k]) - np.asarray(b[k]))))
+                   for k in ("C", "d", "tau"))
+
+    (pg, dg), (pc, dc) = both("updateParams", lambda dev: learning.updateParams(
+        params, res_g, ds, device=dev))
+    checks["updateParams parameters"] = (params_diff(pg, pc), COMPAT_PARAM_TOL)
+    checks["updateParams cost"] = (abs(dg["Cd"] - dc["Cd"]), COMPAT_COST_TOL)
+    (pg, dg, Pg), (pc, dc, Pc) = both("updateParamsWithPrior", lambda dev: (
+        learning.updateParamsWithPrior(params, res_g, ds, covOpts="useDiag",
+                                       updateCdJointly=True, device=dev)))
+    checks["updateParamsWithPrior parameters"] = (params_diff(pg, pc), COMPAT_PARAM_TOL)
+    checks["updateParamsWithPrior cost"] = (abs(dg["Cd"] - dc["Cd"]), COMPAT_COST_TOL)
+    checks["updateParamsWithPrior precision"] = (rel(Pg, Pc), COMPAT_CURV_REL)
+    (pg, _, Hg), (pc, _, Hc) = both("updateParamsWithGradDescent", lambda dev: (
+        learning.updateParamsWithGradDescent(params, res_g, ds, stepSize=0.5, device=dev)))
+    checks["updateParamsWithGradDescent parameters"] = (params_diff(pg, pc), COMPAT_PARAM_TOL)
+    checks["updateParamsWithGradDescent Hessian"] = (rel(Hg, Hc), COMPAT_CURV_REL)
+    eg, ec = both("getCdErrorBars", lambda dev: util.getCdErrorBars(params, ds, res_g,
+                                                                    device=dev))
+    checks["getCdErrorBars"] = (rel(eg, ec), COMPAT_CURV_REL)
+
+    # MCMC: the shim is the port's chain exactly; the CPU replays its draws
+    n_mc = 200
+    sg = card("PosteriorMCMC_200", lambda: mcmc.PosteriorMCMC(ds, params, n_mc, trial=0))
+    launches = read_counts()
+    by_shape = {k.__name__: dict(sorted(k.launches_by_shape.items())) for k in (chol32, ns_step)}
+    draws = SeededDraws(0, "cuda", keep=True)
+    own = posterior_mcmc_from_arrays(params["C"], params["d"], params["tau"], ds.Y[0], T,
+                                     float(bin_ms), n_samples=n_mc, draws=draws, device="cuda")
+    same_chain = bool(np.array_equal(sg, own.samples.reshape(n_mc, -1).cpu().numpy()))
+    t0 = time.time()
+    sc = posterior_mcmc_from_arrays(params["C"], params["d"], params["tau"], ds.Y[0], T,
+                                    float(bin_ms), n_samples=n_mc, draws=ReplayDraws(draws.kept),
+                                    device="cpu").samples.reshape(n_mc, -1).numpy()
+    t_cpu["PosteriorMCMC_200"] = time.time() - t0
+    checks["PosteriorMCMC samples"] = (float(np.max(np.abs(sg - sc))), COMPAT_MCMC_TOL)
+
+    for name, (v, tol) in checks.items():
+        log(f"compat check, {name}: {v:.3e} (tolerance {tol:.2g})")
+        if not v <= tol:
+            failed.append(name)
+    log(f"compat PosteriorMCMC: shape {sg.shape}, equal to posterior_mcmc_from_arrays on the "
+        f"card: {same_chain}; finite {bool(np.isfinite(sg).all())}")
+    if not (same_chain and sg.shape == (n_mc, 5 * T) and np.isfinite(sg).all()):
+        failed.append("PosteriorMCMC")
+    finite = all(np.isfinite(np.asarray(x)).all() for x in (
+        pll_g, vi_g[1], vi_g[2], np.stack(vi_g[0]["post_mean"]), eg, Hg, Pg))
+    log(f"compat: dualVariational over all {R} trials: nPLL {vi_g[1]:.6f}, bound {vi_g[2]:.6f}; "
+        f"every value finite: {finite}")
+    log(f"compat: launches of the card calls {launches}; by (B, D): {by_shape}")
+    if not finite:
+        failed.append("values not finite")
+    if not (by_shape["chol32"].get((R, 5 * T), 0) > 0 and by_shape["ns_step"].get((5, T), 0) > 0):
+        failed.append(f"chol32 at ({R}, {5 * T}) or ns_step at (5, {T}) not launched")
+    row = {"metric": "reference-compat calls at Stevenson width (100 trials x 90 neurons x 140 "
+                     "bins, xdim 5, f64)", "unit": "s", "card": times, "cpu": t_cpu}
+    log(f"compat row: {json.dumps(row)}")
+    log(f"compat phase: {time.time() - t_phase:.1f} s")
+    if failed:
+        raise RuntimeError(f"compat: {failed}")
+    return launches
 
 
 def main():
@@ -1864,12 +2212,13 @@ def main():
     launches, *slice64 = phase_slice()
     launches_vi, *vi64 = phase_vi()
     launches_f32 = phase_f32(slice64, vi64)
-    launches_online, _ = phase_online()
+    launches_online, online64 = phase_online()
     launches_mcmc = phase_mcmc()
     launches_checkpoint = phase_checkpoint()
     launches_diag = phase_diag(rows)
     launches_longt, launches_longt_f32, longt64 = phase_longt()
-    launches_sharded = phase_sharded(slice64, longt64)
+    launches_sharded = phase_sharded(slice64, longt64, online64)
+    launches_compat = phase_compat()
 
     kernels = []
     for name, src, replaces, (B, D) in [
@@ -1886,6 +2235,7 @@ def main():
                         "launches_longt": launches_longt[name],
                         "launches_longt_f32": launches_longt_f32[name],
                         "launches_sharded": launches_sharded[name],
+                        "launches_compat": launches_compat[name],
                         **rows[(name, B, D)],
                         "shapes": [r for (n, _, _), r in rows.items() if n == name]})
     print(json.dumps({"kernels": kernels}))

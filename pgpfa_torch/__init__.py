@@ -6,11 +6,13 @@ with the Laplace or the dual variational E-step (dual-Newton or L-BFGS
 solver), dense or, for long trials, on banded block-tridiagonal algebra
 (``FitConfig(time_block=...)``), with checkpoint and resume
 (``fit_loop``), on one process or with the trials split over processes
-(``fit_sharded``, :mod:`pgpfa_torch.parallel`); the reference-compatible
-class driver ``PPGPFAfit`` with its fit diagnostics, leave-one-neuron-out
-prediction (``leave_one_out_prediction``) and the cross-validated
-latent-dimension sweep (``crossValidation``); and elliptical-slice MCMC of
-the latent posterior (``posterior_mcmc*``). The f32 factorization and the
+(``fit_sharded``, :mod:`pgpfa_torch.parallel`, batch and online); the
+reference-compatible class driver ``PPGPFAfit`` with its fit diagnostics,
+leave-one-neuron-out prediction (``leave_one_out_prediction``) and the
+cross-validated latent-dimension sweep (``crossValidation``);
+elliptical-slice MCMC of the latent posterior (``posterior_mcmc*``); the
+real-data loaders (:mod:`pgpfa_torch.data.loaders`); and the reference's
+module layout (:mod:`pgpfa_torch.compat`, imported on its own). The f32 factorization and the
 f32 Newton-Schulz step of its mixed-precision solvers are hand-written CUDA
 kernels (``pgpfa_torch/csrc/``). Every function works on tensors of one
 device: on a CUDA device the kernels run, on the CPU their plain PyTorch

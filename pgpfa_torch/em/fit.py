@@ -43,6 +43,7 @@ from pgpfa_torch.learn.mstep_obs import (
     c_only_cost,
     c_only_grad_hess,
     cd_cost,
+    cd_cost_sum,
     learn_cd,
     learn_cd_newton,
     neuron_grad_hess,
@@ -52,7 +53,7 @@ from pgpfa_torch.models.params import Params, pack_cd
 from pgpfa_torch.ops.blockmat import solve_psd_mixed
 from pgpfa_torch.utils.io import load_checkpoint, save_checkpoint
 from pgpfa_torch.utils.optim import minimize_lbfgs
-from pgpfa_torch.utils.reduce import Reduce
+from pgpfa_torch.utils.reduce import Reduce, gathered, summed_over_ranks, trial_count
 
 BATCH = "batch"
 ONLINE = "online"
@@ -136,7 +137,9 @@ class FitResult(NamedTuple):
     cd_grad_norm: torch.Tensor  # (iters,)
     cd_niter: torch.Tensor  # (iters,)
     tau_niter: torch.Tensor  # (iters, xdim)
-    newton_iters: torch.Tensor  # (iters, R) E-step Newton counts; online (iters, batch_size)
+    # (iters, R) E-step Newton counts; online (iters, batch_size), -1 at the
+    # rows that other processes hold (fit_loop's reduce)
+    newton_iters: torch.Tensor
     # (iters,) host seconds per iteration, NaN for those restored from a
     # checkpoint; only with fit_loop(record_iter_sec=True)
     iter_sec: Optional[torch.Tensor] = None
@@ -194,7 +197,8 @@ def _mstep_full(C, d, tau, Y, inf: InfRes, bin_size_ms, cfg: FitConfig, reduce: 
     return cd, _learn_tau_from_inf(inf, tau, bin_size_ms, cfg, reduce=reduce)
 
 
-def _online_mstep(n: int, C, d, tau, Yb, inf: InfRes, bin_size_ms, cfg: FitConfig, P, cumH):
+def _online_mstep(n: int, C, d, tau, Yb, inf: InfRes, bin_size_ms, cfg: FitConfig, P, cumH,
+                  reduce: Reduce = None):
     """One online M-step after the E-step ``inf`` of the minibatch ``Yb``;
     ``n`` is the 0-based EM iteration. Returns ``(C', d', tau', P', cumH',
     cd_cost, tau_cost, full_tau, (cd_grad_norm, cd_niter, tau_niter))``.
@@ -203,13 +207,18 @@ def _online_mstep(n: int, C, d, tau, Yb, inf: InfRes, bin_size_ms, cfg: FitConfi
     ``'grad'`` rule (carried, read by nothing), both from :func:`_init_prior`.
     The step size is ``1 / (n + 1)^step_pow`` and the mixing weight of
     ``'balancingGamma'`` ``n / (max_em_iter - 1)``.
+
+    With ``reduce`` (sums over ranks) ``Yb`` holds this rank's share of the
+    minibatch, possibly none, and every statistic is a mean over the
+    minibatch trials of all ranks; each prior or penalty term is added once,
+    after the reduce, so ``P`` and ``cumH`` stay the same on every rank.
     """
     method = cfg.online_update
     gamma = n / max(cfg.max_em_iter - 1, 1)
     stepsize = 1.0 / (n + 1.0) ** cfg.step_pow
 
     if method in _MIXING:
-        cd, tr = _mstep_full(C, d, tau, Yb, inf, bin_size_ms, cfg)
+        cd, tr = _mstep_full(C, d, tau, Yb, inf, bin_size_ms, cfg, reduce)
         mix = {"balancingGamma": gamma, "sequentialAverage": 0.5, "fullyUpdateAll": 0.0}[method]
         newC = mix * C + (1.0 - mix) * cd.C
         newd = mix * d + (1.0 - mix) * cd.d
@@ -217,7 +226,7 @@ def _online_mstep(n: int, C, d, tau, Yb, inf: InfRes, bin_size_ms, cfg: FitConfi
         details = (cd.grad_norm, cd.niter, tr.niter)
         return newC, newd, newtau, P, cumH, cd.cost, tr.cost, tr.tau, details
 
-    tr = _learn_tau_from_inf(inf, tau, bin_size_ms, cfg, prior=(tau, stepsize))
+    tr = _learn_tau_from_inf(inf, tau, bin_size_ms, cfg, prior=(tau, stepsize), reduce=reduce)
     means, vsms = inf.post_mean, inf.post_vsm
     one = torch.ones((), dtype=torch.int32, device=C.device)
     if cfg.update_cd_jointly:
@@ -225,28 +234,28 @@ def _online_mstep(n: int, C, d, tau, Yb, inf: InfRes, bin_size_ms, cfg: FitConfi
         theta_old = torch.cat([C, d[:, None]], dim=1)
         eye_q = torch.eye(theta_old.shape[1], dtype=C.dtype, device=C.device)
         if method == "grad":  # one damped Newton step
-            g, Hb = neuron_grad_hess(theta_old, Yb, means, vsms)
+            g, Hb = neuron_grad_hess(theta_old, Yb, means, vsms, reduce)
             theta_new = theta_old - stepsize * solve_psd_mixed(Hb + 1e-10 * eye_q, g)
             newC, newd = theta_new[:, :-1], theta_new[:, -1]
-            cost = cd_cost(pack_cd(newC, newd), Yb, means, vsms)
+            cost = cd_cost(pack_cd(newC, newd), Yb, means, vsms, reduce)
             cumH = cumH + Hb
             cd_gnorm, cd_niter = g.abs().amax(), one
         else:
             if method == "diag":
                 P = (eye_q / stepsize**2).expand(P.shape)
             else:  # 'hess': the accumulated exact curvature is the prior precision
-                P = neuron_grad_hess(theta_old, Yb, means, vsms)[1] + P
+                P = neuron_grad_hess(theta_old, Yb, means, vsms, reduce)[1] + P
             cd = learn_cd_newton(Yb, means, vsms, C, d, prior_blocks=(P, theta_old),
-                                 n_iter=cfg.cd_newton_iters)
+                                 n_iter=cfg.cd_newton_iters, reduce=reduce)
             newC, newd, cost = cd.C, cd.d, cd.cost
             cd_gnorm, cd_niter = cd.grad_norm, cd.niter
     else:
         # closed-form d, then C alone in vC = C.T.reshape(-1) order
-        newd = update_d_closed_form(Yb, means, vsms, C)
+        newd = update_d_closed_form(Yb, means, vsms, C, reduce)
         vC_old = C.T.reshape(-1)
         eye = torch.eye(vC_old.shape[0], dtype=C.dtype, device=C.device)
         if method == "grad":
-            g, H = c_only_grad_hess(vC_old, newd, Yb, means, vsms)
+            g, H = c_only_grad_hess(vC_old, newd, Yb, means, vsms, reduce)
             vC_new = vC_old - stepsize * solve_psd_mixed(H + 1e-10 * eye, g)
             cumH = cumH + H
             cd_gnorm, cd_niter = g.abs().amax(), one
@@ -254,16 +263,26 @@ def _online_mstep(n: int, C, d, tau, Yb, inf: InfRes, bin_size_ms, cfg: FitConfi
             if method == "diag":
                 P = eye / stepsize**2
             else:
-                P = c_only_grad_hess(vC_old, newd, Yb, means, vsms)[1] + P
+                P = c_only_grad_hess(vC_old, newd, Yb, means, vsms, reduce)[1] + P
+            if reduce is None:
+                def data_cost(v):
+                    return c_only_cost(v, newd, Yb, means, vsms)
+            else:
+                # every rank must take the same L-BFGS steps (it reads back
+                # each evaluation): the local share, divided by the global
+                # count, and its gradient are summed in one collective
+                num = trial_count(Yb.shape[0], C, reduce)
+                data_cost = summed_over_ranks(
+                    lambda v: cd_cost_sum(torch.cat([v, newd]), Yb, means, vsms) / num, reduce)
 
             def fun(v):
                 dv = v - vC_old
-                return c_only_cost(v, newd, Yb, means, vsms) + 0.5 * dv @ (P @ dv)
+                return data_cost(v) + 0.5 * dv @ (P @ dv)
 
             res = minimize_lbfgs(fun, vC_old, maxiter=cfg.cd_maxiter, tol=cfg.cd_tol)
             vC_new, cd_gnorm, cd_niter = res.x, res.grad_norm, res.niter
         newC = vC_new.reshape(C.shape[1], C.shape[0]).T
-        cost = c_only_cost(vC_new, newd, Yb, means, vsms)  # without the penalty
+        cost = c_only_cost(vC_new, newd, Yb, means, vsms, reduce)  # without the penalty
 
     details = (cd_gnorm, cd_niter, tr.niter)
     return newC, newd, tr.tau, P, cumH, cost, tr.cost, tr.tau, details
@@ -377,6 +396,8 @@ def fit_loop(
     stop_after: Optional[int] = None,
     record_iter_sec: bool = False,
     reduce: Reduce = None,
+    trial_offset: int = 0,
+    write_checkpoint: bool = True,
 ) -> FitResult:
     """:func:`fit` with checkpoint and resume (``pgpfa.em.fit.fit_loop``);
     :func:`fit` is this loop without them.
@@ -401,16 +422,28 @@ def fit_loop(
         record_iter_sec: time each iteration on the host clock, closed by a
             ``torch.cuda.synchronize()`` on the card; ``FitResult.iter_sec``,
             NaN for iterations restored from a checkpoint.
-        reduce: batch EM over the trials of several processes, ``Y`` holding
-            this one's: a callable that sums a tensor over all of them
+        reduce: EM over the trials of several processes, ``Y`` holding this
+            one's: a callable that sums a tensor over all of them
             (:mod:`pgpfa_torch.parallel` passes one). Every trial sum of the
             E-steps and M-steps goes through it, so every process computes
-            the same parameters; ``newton_iters`` covers the local trials.
+            the same parameters. Batch EM: ``newton_iters`` covers the local
+            trials. Online EM: the minibatch stream (drawn from ``seed``, or
+            ``batch_indices``) numbers the trials of all processes, which
+            every process must draw or pass alike; each process E-steps the
+            rows of each minibatch that it holds, possibly none, and
+            ``newton_iters`` is ``(iters, batch_size)`` with -1 at the rows
+            other processes hold. A checkpoint holds the warm starts and
+            Newton counts of all processes' trials, laid out as a
+            one-process fit's: every process takes part in gathering it and
+            restores its own share on resume.
+        trial_offset: with ``reduce``, the global number of ``Y``'s first
+            trial: the processes' trials, in rank order, are the global
+            trials ``0 .. R_all - 1``.
+        write_checkpoint: with ``reduce``, whether this process writes
+            ``checkpoint_path`` (one process does; :mod:`pgpfa_torch.parallel`
+            has rank 0 write it). No process goes on before it is written.
     """
     cfg = config or FitConfig()
-    if reduce is not None and cfg.em_mode == ONLINE:
-        raise NotImplementedError("online EM runs on one process: its minibatches cross the "
-                                  "trial shards (ROADMAP.md, queue 1)")
     p = init_params if isinstance(init_params, Params) else params_from_numpy(
         init_params, device, dtype)
     Y = torch.as_tensor(Y, dtype=p.C.dtype, device=p.C.device)
@@ -420,6 +453,9 @@ def fit_loop(
     C, d, tau = p.C, p.d, p.tau
     warm = warm_prev = None
     P = cumH = _init_prior(cfg, C.shape[1], ydim, C)
+    # the global trial numbering: the online stream's and the checkpoint's
+    R_all = R if reduce is None else int(trial_count(R, C, reduce))
+    mine = slice(trial_offset, trial_offset + R)
     rows, start = [], 0
     if resume_from is not None:
         state = load_checkpoint(resume_from)
@@ -428,9 +464,10 @@ def fit_loop(
         d, tau = d.reshape(-1), tau.reshape(-1)
         start = state["em_iter"]
         if state["warm"] is not None:
-            warm = torch.tensor(state["warm"], **like)
+            warm = torch.tensor(state["warm"][mine], **like)
         # an older checkpoint has no warm_prev: a plain warm start then
-        warm_prev = torch.tensor(extra["warm_prev"], **like) if "warm_prev" in extra else warm
+        warm_prev = (torch.tensor(extra["warm_prev"][mine], **like) if "warm_prev" in extra
+                     else warm)
         if "P" in extra:
             P, cumH = torch.tensor(extra["P"], **like), torch.tensor(extra["cumH"], **like)
         if cfg.em_mode == ONLINE and batch_indices is None:
@@ -445,9 +482,34 @@ def fit_loop(
                     for i, k in enumerate(_HIST_KEYS)]
             rows = [tuple(h[i] for h in hist) for i in range(start)]
     end = cfg.max_em_iter if stop_after is None else min(int(stop_after), cfg.max_em_iter)
-    if cfg.em_mode == ONLINE and end > start:
-        idx = _minibatches(R, cfg, seed, batch_indices, start, end, Y.device)
+    if cfg.em_mode == ONLINE and max(start, end) > 0:
+        # every process draws the whole stream and E-steps the rows it holds
+        idx = _minibatches(R_all, cfg, seed, batch_indices, 0, max(start, end), "cpu")
+        held = (idx >= trial_offset) & (idx < trial_offset + R)
+        # each iteration's local trials and their places in the minibatch, moved once
+        batches = [((b[h] - trial_offset).to(Y.device), h.nonzero()[:, 0].to(Y.device))
+                   for b, h in zip(idx[start:end], held[start:end])]
+    if rows:  # the checkpoint's Newton counts are all processes': keep this one's
+        if cfg.em_mode == BATCH:
+            rows = [r[:-1] + (r[-1][mine],) for r in rows]
+        else:
+            rows = [r[:-1] + (torch.where(h.to(Y.device), r[-1], -1),)
+                    for r, h in zip(rows, held)]
     times = [math.nan] * start if record_iter_sec else None
+
+    def checkpoint(em_iter):
+        # the warm starts and the Newton counts of all processes' trials
+        w, wp = (None if x is None else gathered(x, trial_offset, R_all, reduce)
+                 for x in (warm, warm_prev))
+        nwi = torch.stack([r[-1] for r in rows])
+        if reduce is not None:
+            nwi = (reduce(nwi + 1) - 1 if cfg.em_mode == ONLINE else
+                   gathered(nwi.T, trial_offset, R_all, reduce).T)
+        if write_checkpoint:
+            _save(checkpoint_path, C, d, tau, em_iter, w, wp, P, cumH, seed,
+                  [r[:-1] + (h,) for r, h in zip(rows, nwi)])
+        if reduce is not None:  # read back: no process goes on before the file is written
+            float(reduce(C.new_zeros(1))[0])
 
     for n in range(start, end):
         t0 = time.perf_counter()
@@ -460,22 +522,26 @@ def fit_loop(
             warm_prev = warm_new if warm is None else warm
             warm = warm_new
             row = (C, d, tau, pll, vlb, cd.cost, tr.cost, cd.grad_norm, cd.niter, tr.niter)
+            nwi = inf.newton_iters
         else:
-            Yb = Y.index_select(0, idx[n - start])
+            local, pos = batches[n - start]
+            Yb = Y.index_select(0, local)
             # cold E-step: a new minibatch
-            inf, pll, vlb, _ = _estep(C, d, tau, Yb, T, bin_size_ms, None, cfg)
+            inf, pll, vlb, _ = _estep(C, d, tau, Yb, T, bin_size_ms, None, cfg, reduce)
             C, d, newtau, P, cumH, cost, tcost, full_tau, det = _online_mstep(
-                n, C, d, tau, Yb, inf, bin_size_ms, cfg, P, cumH)
+                n, C, d, tau, Yb, inf, bin_size_ms, cfg, P, cumH, reduce)
             tau = full_tau if cfg.fully_update_tau else newtau
             row = (C, d, tau, pll, vlb, cost, tcost, *det)
+            nwi = torch.full((held.shape[1],), -1, dtype=torch.int32, device=Y.device)
+            nwi.index_copy_(0, pos, inf.newton_iters.to(torch.int32))
         rows.append(row[:_N_FLOAT_HIST] + tuple(
-            c.to(torch.int32) for c in row[_N_FLOAT_HIST:] + (inf.newton_iters,)))
+            c.to(torch.int32) for c in row[_N_FLOAT_HIST:] + (nwi,)))
         if record_iter_sec:
             if C.is_cuda:
                 torch.cuda.synchronize(C.device)
             times.append(time.perf_counter() - t0)
         if checkpoint_path is not None and ((n + 1) % checkpoint_every == 0 or n + 1 == end):
-            _save(checkpoint_path, C, d, tau, n + 1, warm, warm_prev, P, cumH, seed, rows)
+            checkpoint(n + 1)
 
     seq = [torch.stack(col) for col in zip(*rows)]
     C_seq, d_seq, tau_seq, pll, vlb, cdc, tc, cgn, cni, tni, nwi = seq

@@ -36,19 +36,30 @@ class CdResult(NamedTuple):
     niter: torch.Tensor
 
 
-def cd_cost(vec: torch.Tensor, Y: torch.Tensor, means: torch.Tensor,
-            vsms: torch.Tensor) -> torch.Tensor:
-    """Negative expected complete-data log-likelihood of packed (C, d), / R.
-
-    ``Y (R, ydim, T)``, ``means (R, xdim, T)``, ``vsms (R, T, xdim, xdim)``.
-    """
-    R, ydim, _ = Y.shape
+def cd_cost_sum(vec: torch.Tensor, Y: torch.Tensor, means: torch.Tensor,
+                vsms: torch.Tensor) -> torch.Tensor:
+    """Negative expected complete-data log-likelihood of packed (C, d),
+    summed over the trials of ``Y (R, ydim, T)``; ``means (R, xdim, T)``,
+    ``vsms (R, T, xdim, xdim)``."""
+    ydim = Y.shape[1]
     xdim = means.shape[1]
     C, d = unpack_cd(vec, xdim, ydim)
     hh = torch.einsum("nk,rkt->rnt", C, means) + d[None, :, None]
     quad = torch.einsum("nk,rtkl,nl->rnt", C, vsms, C)
     rate = torch.exp(hh + 0.5 * quad)
-    return -(Y * hh - rate).sum() / R
+    return -(Y * hh - rate).sum()
+
+
+def cd_cost(vec: torch.Tensor, Y: torch.Tensor, means: torch.Tensor,
+            vsms: torch.Tensor, reduce: Reduce = None) -> torch.Tensor:
+    """:func:`cd_cost_sum` / R: the mean over trials, over the trials of all
+    ranks with ``reduce`` (the sum and the count in one collective; not
+    differentiable then)."""
+    s = cd_cost_sum(vec, Y, means, vsms)
+    if reduce is None:
+        return s / Y.shape[0]
+    tot = reduce(torch.stack([s, s.new_full((), Y.shape[0])]))
+    return tot[0] / tot[1]
 
 
 def cd_cost_with_prior(vec, Y, means, vsms, center, inv_prior_cov) -> torch.Tensor:
@@ -133,13 +144,21 @@ class _CdMoments:
         return g, torch.cat([top, bot], dim=1)
 
 
-def neuron_grad_hess(theta, Y, means, vsms):
+def neuron_grad_hess(theta, Y, means, vsms, reduce: Reduce = None):
     """Analytic gradients ``(ydim, q)`` and Hessians ``(ydim, q, q)`` of every
     neuron's share of :func:`cd_cost` at ``theta (ydim, q)``, rows
     ``[C[n], d[n]]``: the exact Hessian of the cost is block-diagonal per
-    neuron."""
-    mom = _CdMoments(Y, means, vsms)
-    return mom.grad_hess(theta, mom.rates(theta))
+    neuron. ``reduce`` (sums over ranks) makes them those of the mean over
+    the trials of all ranks: the count, then both packed in one tensor, are
+    summed over ranks."""
+    if reduce is None:
+        mom = _CdMoments(Y, means, vsms)
+        return mom.grad_hess(theta, mom.rates(theta))
+    mom = _CdMoments(Y, means, vsms, trial_count(Y.shape[0], theta, reduce))
+    g, H = mom.grad_hess(theta, mom.rates(theta))
+    ydim, q = g.shape
+    gH = reduce(torch.cat([g, H.reshape(ydim, q * q)], 1))
+    return gH[:, :q], gH[:, q:].reshape(ydim, q, q)
 
 
 def _scatter_blocks(Hb: torch.Tensor) -> torch.Tensor:
@@ -266,31 +285,43 @@ def learn_cd(Y, means, vsms, C0, d0,
     return CdResult(C=C, d=d, cost=res.fun, grad_norm=res.grad_norm, niter=res.niter)
 
 
-def update_d_closed_form(Y, means, vsms, C) -> torch.Tensor:
+def update_d_closed_form(Y, means, vsms, C, reduce: Reduce = None) -> torch.Tensor:
     """Closed-form ``d`` given ``C`` and the posterior moments: the mean rate
     matched to the mean count, ``d = log(mean Y + 1e-5) - log(mean exp(Cm +
     q/2))``. This is the JAX package's consistent form (the original
-    reference applies the log and the normalization in another order)."""
-    mean_y = Y.mean((0, 2)) + 1e-5
+    reference applies the log and the normalization in another order).
+    ``reduce`` (sums over ranks) takes both means over the trials of all
+    ranks: the count sums, the rate sums and the trial count in one
+    collective."""
     hh = torch.einsum("nk,rkt->rnt", C, means)
     quad = torch.einsum("nk,rtkl,nl->rnt", C, vsms, C)
-    mean_rate = torch.exp(hh + 0.5 * quad).mean((0, 2))
+    rate = torch.exp(hh + 0.5 * quad)
+    if reduce is None:
+        mean_y = Y.mean((0, 2)) + 1e-5
+        mean_rate = rate.mean((0, 2))
+    else:
+        ydim, T = Y.shape[1], Y.shape[2]
+        tot = reduce(torch.cat([Y.sum((0, 2)), rate.sum((0, 2)), Y.new_full((1,), Y.shape[0])]))
+        n = tot[-1] * T
+        mean_y = tot[:ydim] / n + 1e-5
+        mean_rate = tot[ydim:2 * ydim] / n
     return torch.log(mean_y) - torch.log(mean_rate)
 
 
-def c_only_cost(vC, d, Y, means, vsms) -> torch.Tensor:
+def c_only_cost(vC, d, Y, means, vsms, reduce: Reduce = None) -> torch.Tensor:
     """:func:`cd_cost` as a function of ``vC = C.T.reshape(-1)``
     (latent-major) with ``d`` fixed."""
-    return cd_cost(torch.cat([vC, d]), Y, means, vsms)
+    return cd_cost(torch.cat([vC, d]), Y, means, vsms, reduce)
 
 
-def c_only_grad_hess(vC, d, Y, means, vsms):
+def c_only_grad_hess(vC, d, Y, means, vsms, reduce: Reduce = None):
     """Gradient ``(xdim*ydim,)`` and dense Hessian ``(xdim*ydim, xdim*ydim)``
     of :func:`c_only_cost` in ``vC`` order. With ``d`` fixed the cost
     separates per neuron, so the Hessian is the per-neuron ``H_cc`` blocks
-    scattered by :func:`_scatter_blocks`, zero elsewhere."""
+    scattered by :func:`_scatter_blocks`, zero elsewhere. ``reduce`` as in
+    :func:`neuron_grad_hess`."""
     ydim = d.shape[0]
     xdim = vC.shape[0] // ydim
     theta = torch.cat([vC.reshape(xdim, ydim).T, d[:, None]], dim=1)
-    g, H = neuron_grad_hess(theta, Y, means, vsms)
+    g, H = neuron_grad_hess(theta, Y, means, vsms, reduce)
     return g[:, :xdim].T.reshape(-1), _scatter_blocks(H[:, :xdim, :xdim])

@@ -4,7 +4,8 @@ One process per card, each fitting its own trials: the E-step factorizes
 over trials and every M-step statistic is a sum over trials, so the split is
 exact. The processes meet only in ``all_reduce`` (and ``broadcast``)
 collectives at those sums (:mod:`pgpfa_torch.utils.reduce`), in the same
-order on every process.
+order on every process. Online EM draws one minibatch stream over all
+processes' trials; each process E-steps the rows it holds.
 
 * :mod:`~pgpfa_torch.parallel.mesh`: how trials are split over processes.
 * :mod:`~pgpfa_torch.parallel.sharded`: :func:`fit_sharded` (every process

@@ -30,7 +30,6 @@ from pgpfa_torch.parallel.sharded import (
     fit_sharded,
     in_process_group,
 )
-from pgpfa_torch.utils.reduce import trial_count
 
 _LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
@@ -68,21 +67,32 @@ def fit_multihost(
     device=None,
     dtype=torch.float64,
     group=None,
+    **loop_kw,
 ) -> FitResult:
-    """Batch EM with each rank of ``group`` passing its own trials
+    """Batch or online EM with each rank of ``group`` passing its own trials
     ``Y_local (R_local, ydim, T)``; the global fit sees all ranks' trials.
 
     The local counts may differ, and a rank may hold none: every statistic
     is a sum over trials, so the split need not divide evenly (the JAX
-    package needs the global count divisible by its mesh). With one process
+    package needs the global count divisible by its mesh). Online EM numbers
+    the trials of all ranks in rank order (rank 0's first); one collective
+    of the local counts gives each rank its offset. ``loop_kw`` are
+    :func:`~pgpfa_torch.parallel.sharded.fit_sharded`'s. With one process
     this is :func:`~pgpfa_torch.parallel.sharded.fit_sharded`. The result is
-    the same on every rank, as there. Online EM raises.
+    the same on every rank, as there.
     """
     cfg = config or FitConfig()
     if not in_process_group() or dist.get_world_size(group) == 1:
-        return fit_sharded(init_params, Y_local, bin_size_ms, cfg, device, dtype, group)
+        return fit_sharded(init_params, Y_local, bin_size_ms, cfg, device, dtype, group,
+                           **loop_kw)
     reduce = all_reduce_sum(group)
     device = default_device(device)
-    if trial_count(len(Y_local), torch.zeros(1, dtype=dtype, device=device), reduce) == 0:
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    counts = torch.zeros(world, dtype=dtype, device=device)
+    counts[rank] = len(Y_local)
+    counts = [int(c) for c in reduce(counts).tolist()]
+    if sum(counts) == 0:
         raise ValueError("fit_multihost: no rank holds a trial")
-    return fit_loop(init_params, Y_local, bin_size_ms, cfg, device, dtype, reduce=reduce)
+    return fit_loop(init_params, Y_local, bin_size_ms, cfg, device, dtype, reduce=reduce,
+                    trial_offset=sum(counts[:rank]), write_checkpoint=rank == 0,
+                    **loop_kw)

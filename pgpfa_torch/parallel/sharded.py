@@ -12,6 +12,11 @@ the trip count is the same on every process (the fixed (C, d) Newton, the
 secant's evaluations), never inside the per-trial Newton loops of the
 E-steps, whose trip counts differ by process; so every process takes the
 same steps and ends with the same parameters.
+
+Online EM draws one minibatch stream over the global trial numbering on
+every process; each process E-steps the rows of each minibatch that it
+holds (possibly none) and every M-step statistic of the update rules is
+reduced the same way, the penalties added once after the reduce.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from pgpfa_torch.em.fit import ONLINE, FitConfig, FitResult, fit, fit_loop
+from pgpfa_torch.em.fit import FitConfig, FitResult, fit_loop
 from pgpfa_torch.infer.laplace import laplace_estep_from_arrays
 from pgpfa_torch.learn.mstep_gp import pauto_sum
 from pgpfa_torch.parallel.mesh import trial_slice
@@ -53,12 +58,6 @@ def default_device(device=None) -> torch.device:
     return torch.device(f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}")
 
 
-def check_batch_em(cfg: FitConfig):
-    if cfg.em_mode == ONLINE:
-        raise NotImplementedError("sharded online EM is not ported: its minibatches cross the "
-                                  "trial shards (ROADMAP.md, queue 1)")
-
-
 def fit_sharded(
     init_params,
     Y,
@@ -67,32 +66,42 @@ def fit_sharded(
     device=None,
     dtype=torch.float64,
     group=None,
+    **loop_kw,
 ) -> FitResult:
-    """Batch EM with the trials split over the ranks of ``group`` (the default
-    process group when ``None``).
+    """Batch or online EM with the trials split over the ranks of ``group``
+    (the default process group when ``None``).
 
     Every rank passes the whole ``Y (R, ydim, T)``, as the JAX package's
     single process does, and fits its :func:`~pgpfa_torch.parallel.mesh.trial_slice`;
     ranks beyond ``mesh_for_trials(R, world_size)`` hold no trials and still
     take part in every collective. Both E-steps, dense and banded, in f64 or
-    f32. The result is the same on every rank: ``post_loglik``, the bound
-    and the parameters are global, ``newton_iters`` covers the rank's own
-    trials. Without an initialized process group this is
-    :func:`pgpfa_torch.fit`, bit for bit. Online EM raises.
+    f32; online EM with all six update rules, joint or C-only (C, d). The
+    result is the same on every rank: ``post_loglik``, the bound and the
+    parameters are global, ``newton_iters`` covers the rank's own trials
+    (online: ``(iters, batch_size)``, -1 at other ranks' rows). Without an
+    initialized process group this is :func:`pgpfa_torch.fit_loop`, bit for
+    bit.
+
+    ``loop_kw`` are :func:`~pgpfa_torch.em.fit.fit_loop`'s keywords: the
+    online stream's ``seed`` or ``batch_indices`` (over all ``R`` trials,
+    the same on every rank), ``checkpoint_path`` (written by rank 0 alone,
+    with the warm starts of all ranks' trials, batch EM's too),
+    ``checkpoint_every``, ``resume_from`` (read by every rank),
+    ``stop_after`` and ``record_iter_sec``.
 
     ``device=None`` is the card ``cuda:{LOCAL_RANK}`` (``cuda:0`` without a
     launcher), never the CPU unless asked (``device="cpu"``, with the gloo
     backend).
     """
     cfg = config or FitConfig()
-    check_batch_em(cfg)
     device = default_device(device)
     if not in_process_group():
-        return fit(init_params, Y, bin_size_ms, cfg, device, dtype)
+        return fit_loop(init_params, Y, bin_size_ms, cfg, device, dtype, **loop_kw)
     rank, world = dist.get_rank(group), dist.get_world_size(group)
-    Y_local = Y[trial_slice(rank, len(Y), world)]
-    return fit_loop(init_params, Y_local, bin_size_ms, cfg, device, dtype,
-                    reduce=all_reduce_sum(group))
+    sl = trial_slice(rank, len(Y), world)
+    return fit_loop(init_params, Y[sl], bin_size_ms, cfg, device, dtype,
+                    reduce=all_reduce_sum(group), trial_offset=sl.start,
+                    write_checkpoint=rank == 0, **loop_kw)
 
 
 def sharded_estep_stats(C, d, tau, Y_local, T: int, bin_size_ms: float, group=None,

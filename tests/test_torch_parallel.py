@@ -6,6 +6,7 @@ The ranks are CPU processes forked by ``torch_helpers.run_ranks`` and joined
 by a gloo group. The JAX side runs on its 8-device virtual mesh and is
 recorded in ``tests/torch_parallel_reference.npz``
 (``python tests/torch_parallel_reference.py``); nothing here runs JAX.
+Sharded online EM is tested in ``tests/test_torch_parallel_online.py``.
 
 Tolerances: a sharded fit sums the same trial terms in another order, so it
 is held to the port's own one-process fit with ``tests/test_parallel.py``'s
@@ -113,18 +114,25 @@ def test_fit_sharded_two_ranks(key):
 
 
 def test_fit_sharded_without_group_is_fit():
-    """Without a process group fit_sharded is fit, bit for bit; online EM
-    raises, naming ROADMAP.md, with or without one."""
+    """Without a process group fit_sharded and fit_multihost are fit, bit
+    for bit, batch and online; fit_loop(reduce=...) with an identity reduce
+    (one process, each mean taken as sum / count) is the online fit to
+    rounding."""
     assert not torch.distributed.is_initialized()
     a = _result(fit_sharded(INIT, DATA.Y, BIN, CONFIGS["laplace"][0], device="cpu"))
     for k, v in _single("laplace").items():
         assert torch.equal(a[k], v), k
-    online = FitConfig(em_mode="online", max_em_iter=1)
+    online = FitConfig(em_mode="online", max_em_iter=2, batch_size=4)
+    want = _result(fit(INIT, DATA.Y, BIN, online, device="cpu", seed=1))
     for entry in (fit_sharded, fit_multihost):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            entry(INIT, DATA.Y, BIN, online, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pgpfa_torch.fit_loop(INIT, DATA.Y, BIN, online, device="cpu", reduce=lambda t: t)
+        got = _result(entry(INIT, DATA.Y, BIN, online, device="cpu", seed=1))
+        for k, v in want.items():
+            assert torch.equal(got[k], v), (entry.__name__, k)
+    got = _result(pgpfa_torch.fit_loop(INIT, DATA.Y, BIN, online, device="cpu", seed=1,
+                                       reduce=lambda t: t))
+    assert torch.equal(got["newton_iters"], want["newton_iters"])
+    for k in HIST:
+        np.testing.assert_allclose(npy(got[k]), npy(want[k]), rtol=1e-11, atol=1e-11, err_msg=k)
 
 
 def test_idle_rank_changes_nothing():
